@@ -1,0 +1,116 @@
+"""Batched symmetric encode + encrypt with the reference's PRNG semantics.
+
+Port of ``seal_embedded_tpu/ckks/fast.py``: one shareable PRNG stream
+whose counter chains across primes (seal_embedded.c:145-213), restructured
+so the heavy parts run as the port's three kernels:
+
+* encode (KE), the CBD error and every SHAKE-256 expansion of the
+  uniform sampler (KK);
+* the NTT of the plaintext+error for all limbs in one launch, fused with
+  the c0 epilogue (KN), and ntt(s) per limb through the same kernel.
+
+The limb loop carries only the sampler counter, the one true sequential
+dependency.  On CPU tensors every kernel wrapper runs its plain version,
+so the same module is the reference path of the tests.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import Parms
+from ..ops import modarith as ma
+from ..ops import sampling as sp
+from ..ops.encode import check_encode_mode, scale_over_n, table_tensors
+from ..ops.kernels.encode import encode_f64
+from ..ops.kernels.ntt import ntt_fwd
+from ..ops.ntt import ntt_tables_stacked
+
+
+class SymEncryptor(nn.Module):
+    """sym_encrypt_fused for one parameter set, with its tables resident on
+    `device` as buffers: NTT roots (op, quot), the modulus vector, the
+    Barrett constants, encode index map and IFFT twiddles.
+
+    forward(values f32 (B, <= n/2), sk_signed int (n,) in {-1, 0, 1},
+    share_words, err_words int64 (B, 16) u32 PRNG seeds) returns a dict
+    with c0, c1 int64 (L, B, n) u32 values, pte and pt int64 (B, n) and
+    ok bool (B,), the layouts of the JAX function.
+    """
+
+    def __init__(self, parms: Parms, device=None):
+        super().__init__()
+        self.parms = parms
+        self.moduli = tuple(int(q) for q in parms.moduli)
+        self.queue_cap = sp.queue_cap_for(parms.degree, self.moduli)
+        self.scale_n = scale_over_n(parms)
+        op, quot = ntt_tables_stacked(parms.degree, self.moduli)
+        self.register_buffer("ntt_op", torch.as_tensor(
+            op.astype(np.int64), device=device))
+        self.register_buffer("ntt_quot", torch.as_tensor(
+            quot.astype(np.int64), device=device))
+        mods = ma.modpack(self.moduli, device)
+        self.register_buffer("q", mods.q)
+        self.register_buffer("r0", mods.r0)
+        self.register_buffer("r1", mods.r1)
+        imap, tw_re, tw_im = table_tensors(parms.degree, device)
+        self.register_buffer("imap", imap)
+        self.register_buffer("tw_re", tw_re)
+        self.register_buffer("tw_im", tw_im)
+
+    def ntt_secret(self, sk_signed):
+        """ntt(s) per limb: (L, n), s mapped {-1, 0, 1} -> {q-1, 0, 1}."""
+        qv = self.q[:, None, None]
+        sk = sk_signed.to(torch.int64).reshape(1, 1, -1)
+        s = torch.where(sk < 0, qv - 1, sk)                # (L, 1, n)
+        return ntt_fwd(s.contiguous(), self.ntt_op, self.ntt_quot,
+                       self.q)[:, 0, :]
+
+    def forward(self, values, sk_signed, share_words, err_words):
+        B = values.shape[0]
+        n = self.parms.degree
+        dev = values.device
+
+        # --- encode + error (ckks_encode_base + ckks_sym_init) ---
+        pt, ok = encode_f64(values, self.imap, self.tw_re, self.tw_im,
+                            self.scale_n)
+        e, _ = sp.sample_cbd(err_words, sp.counter_zero((B,), dev), n)
+        pte = pt + e
+        mods_b = ma.Mod(self.q[:, None, None], self.r0[:, None, None],
+                        self.r1[:, None, None], None)
+        pte_red = ma.reduce_pte_i64(pte[None], mods_b)       # (L, B, n)
+
+        # --- uniform a per prime; the counter chains from limb to limb ---
+        counter = sp.counter_zero((B,), dev)
+        a = []
+        for q in self.moduli:
+            a_l, counter, ok_u = sp.sample_uniform(
+                share_words, counter, n, q, queue_cap=self.queue_cap)
+            a.append(a_l)
+            ok = ok & ok_u
+        a = torch.stack(a)
+
+        c0 = _combine_c0(pte_red, a, self.ntt_secret(sk_signed),
+                         self.ntt_op, self.ntt_quot, self.q)
+        return {"c0": c0, "c1": a, "pte": pte, "pt": pt, "ok": ok}
+
+
+def _combine_c0(pte_red, a, ntt_s, op, quot, q):
+    """c0 = -a * ntt(s) + ntt(pte) mod q: the NTT of pte with the epilogue
+    fused into KN at every degree (a row fits a block's shared memory up to
+    n = 16384), so ntt(pte) is never stored on its own."""
+    s_quot = ma.shoup_quotient(ntt_s, q[:, None])
+    return ntt_fwd(pte_red.contiguous(), op, quot, q, a=a.contiguous(),
+                   s_op=ntt_s.contiguous(), s_quot=s_quot.contiguous())
+
+
+def sym_encrypt_fused(values, sk_signed, share_words, err_words,
+                      parms: Parms, encode_mode: str = "sf"):
+    """Batched symmetric encode + encrypt (the JAX function's signature);
+    builds a SymEncryptor on values' device and runs it once.  Every
+    encode_mode of the JAX package is the one bit-exact f64 encode here."""
+    check_encode_mode(encode_mode)
+    return SymEncryptor(parms, values.device)(
+        values, sk_signed, share_words, err_words)

@@ -1,0 +1,206 @@
+"""Bit-exact batched samplers on torch tensors.
+
+Port of ``seal_embedded_tpu/ops/sampling.py`` (the reference's samplers,
+device/lib/sample.c), with the same PRNG byte-consumption pattern:
+
+* The uniform sampler's rejection loop draws fresh PRNG calls (counters
+  c+1, c+2, ...) in order.  The j-th rejected base position ends up with
+  the j-th accepted queue draw, so one batched squeeze of a bounded queue
+  plus a rank-select reproduces the loop with no sequential step.
+* Counters are u64 values carried as int64 (..., 2) (lo, hi) u32 pairs,
+  with the carry into hi on every offset path.
+
+The rank-select stays torch ops (topk, stable sort, scatter), as the JAX
+package left it to XLA.  Every SHAKE squeeze goes through kernel KK's
+wrapper.  All u32 values are int64 tensors in [0, 2^32).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .keccak import MASK32, align_seed
+from .kernels.keccak import keccak_squeeze
+from .modarith import as_mod, barrett32
+
+
+def uniform_queue_cap(n: int, p_max: float | None = None) -> int:
+    """Queue bound for degree n: E + 8*sigma + 8, rounded up to a multiple
+    of 8 (p_max = worst per-word rejection probability of the chain;
+    0.02 when unknown).  The bound affects only the ok flag, never the
+    output values."""
+    if p_max is None:
+        p_max = 0.02
+    e = p_max * n
+    cap = e + 8.0 * (e * (1.0 - p_max)) ** 0.5 + 8.0
+    return max(24, int(-(-cap // 8)) * 8)
+
+
+def chain_p_max(moduli) -> float:
+    """Worst per-word uniform-sampler rejection probability of a chain."""
+    return max((2.0 ** 32 - float((MASK32 - (MASK32 % int(q)) - 1)))
+               / 2.0 ** 32 for q in moduli)
+
+
+def queue_cap_for(n: int, moduli) -> int:
+    """Chain-aware uniform queue bound: 160 at n=4096 on the 30-bit chain,
+    where the chain-blind uniform_queue_cap(4096) is 168."""
+    return uniform_queue_cap(n, chain_p_max(moduli))
+
+
+def _blocks_for_bytes(nbytes: int) -> int:
+    return -(-nbytes // 136)
+
+
+# --------------------------------------------------------------- counters
+
+def counter_zero(batch_shape, device=None):
+    """Fresh per-stream counter pairs, value 0 (prng_randomize_reset)."""
+    return torch.zeros(tuple(batch_shape) + (2,), dtype=torch.int64,
+                       device=device)
+
+
+def _c_add(c, inc):
+    """c (..., 2) + inc (int or int64 tensor < 2^32), carrying into hi."""
+    lo = c[..., 0] + inc
+    hi = (c[..., 1] + (lo >> 32)) & MASK32
+    return torch.stack([lo & MASK32, hi], dim=-1)
+
+
+def _c_offsets(c, offs):
+    """c (..., 2) + offs (K,) -> (..., K, 2) queue counter pairs."""
+    lo = c[..., 0, None] + offs
+    hi = (c[..., 1, None] + (lo >> 32)) & MASK32
+    return torch.stack([lo & MASK32, hi], dim=-1)
+
+
+def _squeeze(seed_words, counters, nblocks: int, nwords: int | None = None):
+    """SHAKE words for seeds (S..., 16) broadcast against counters
+    (S..., extra..., 2), flattened into kernel KK's (N, 16) / (N, 2)."""
+    batch = counters.shape[:-1]
+    seeds = align_seed(seed_words, counters).expand(batch + (16,))
+    out = keccak_squeeze(seeds.reshape(-1, 16).contiguous(),
+                         counters.reshape(-1, 2).contiguous(), nblocks, nwords)
+    return out.reshape(batch + (out.shape[-1],))
+
+
+def _words_to_bytes(words):
+    """u32 words (..., W) -> byte values (..., 4W), LE order."""
+    out = torch.stack([words & 0xFF, (words >> 8) & 0xFF,
+                       (words >> 16) & 0xFF, (words >> 24) & 0xFF], dim=-1)
+    return out.reshape(words.shape[:-1] + (words.shape[-1] * 4,))
+
+
+# Chunk width of the rejected-position search for wide rows (a per-chunk
+# top-k and one merge sort), as in the JAX package: the ok flag of a row
+# depends on it (a chunk with more than _CHUNK_K rejections fails).
+_CHUNK_N = 4096
+_CHUNK_K = 160
+
+
+def _rejected_positions(rejected, cap: int):
+    """Positions of the first `cap` rejected entries of each row, in
+    position order (n where the rank is invalid).  Returns (positions
+    (..., cap), num_rejected (...,), ok (...,))."""
+    n = rejected.shape[-1]
+    dev = rejected.device
+    num_rejected = rejected.sum(dim=-1)
+    if n <= _CHUNK_N:
+        k = min(cap, n)
+        keys = torch.where(rejected, n - torch.arange(n, device=dev),
+                           torch.zeros((), dtype=torch.int64, device=dev))
+        pos = n - torch.topk(keys, k, dim=-1).values
+        if k < cap:
+            pos = torch.cat([pos, torch.full(pos.shape[:-1] + (cap - k,), n,
+                                             dtype=torch.int64, device=dev)],
+                            dim=-1)
+        return pos, num_rejected, torch.ones_like(num_rejected,
+                                                  dtype=torch.bool)
+
+    nch = n // _CHUNK_N
+    rch = rejected.reshape(rejected.shape[:-1] + (nch, _CHUNK_N))
+    ok = (rch.sum(dim=-1) <= _CHUNK_K).all(dim=-1)
+    span = torch.arange(_CHUNK_N, device=dev)
+    keys = torch.where(rch, _CHUNK_N - span,
+                       torch.zeros((), dtype=torch.int64, device=dev))
+    lpos = _CHUNK_N - torch.topk(keys, _CHUNK_K, dim=-1).values
+    cidx = torch.arange(nch, device=dev)[:, None]
+    gpos = torch.where(lpos == _CHUNK_N, n, lpos + cidx * _CHUNK_N)
+    flat = gpos.reshape(gpos.shape[:-2] + (nch * _CHUNK_K,))
+    return torch.sort(flat, dim=-1).values[..., :cap], num_rejected, ok
+
+
+def _rank_select(base_vals, rejected, queue_vals, queue_acc):
+    """Queue equivalence core: the (r+1)-th rejected base position takes
+    the (r+1)-th accepted queue value.
+
+    base_vals: (..., n) initial draws; rejected: their rejection mask;
+    queue_vals / queue_acc: (..., cap) extra draws and their acceptance.
+    Returns (final values, queue slots consumed, ok).
+    """
+    cap = queue_vals.shape[-1]
+    n = base_vals.shape[-1]
+
+    qrank = torch.cumsum(queue_acc.to(torch.int64), dim=-1)
+    num_accepted = qrank[..., -1]
+    # Accepted values first, in queue order (stable sort on rejection).
+    order = torch.sort((~queue_acc).to(torch.int64), dim=-1,
+                       stable=True).indices
+    accepted_vals = torch.gather(queue_vals, -1, order)
+
+    rej_pos, num_rejected, ok_pos = _rejected_positions(rejected, cap)
+    # Invalid ranks point at column n: scatter into n + 1 columns and drop
+    # the last (the JAX scatter's mode="drop").
+    ext = torch.cat([base_vals, torch.zeros_like(base_vals[..., :1])], dim=-1)
+    final = ext.scatter(-1, rej_pos, accepted_vals)[..., :n]
+
+    # Slots consumed = queue position of the last needed accepted entry + 1.
+    before_last = (qrank < num_rejected[..., None]).sum(dim=-1)
+    consumed = torch.where(num_rejected > 0, before_last + 1,
+                           torch.zeros_like(before_last))
+    ok = (num_rejected <= num_accepted) & ok_pos
+    return final, consumed, ok
+
+
+def sample_uniform(seed_words, counter, n: int, q,
+                   queue_cap: int | None = None):
+    """sample_poly_uniform (sample.c:39-57), batched.
+
+    seed_words: int64 (..., 16); counter: int64 (..., 2) u64 pair per
+    stream; q: int modulus.  Returns (poly int64 (..., n) in [0, q),
+    next_counter, ok).
+    """
+    m = as_mod(q)
+    base = _squeeze(seed_words, counter, _blocks_for_bytes(4 * n))[..., :n]
+    rejected = base >= m.max_multiple
+
+    cap = queue_cap if queue_cap is not None else uniform_queue_cap(n)
+    offs = 1 + torch.arange(cap, device=counter.device)
+    qvals = _squeeze(seed_words, _c_offsets(counter, offs), 1, nwords=1)[..., 0]
+    qacc = qvals < m.max_multiple
+
+    final, consumed, ok = _rank_select(base, rejected, qvals, qacc)
+    return barrett32(final, m), _c_add(counter, 1 + consumed), ok
+
+
+def _popcount8(b):
+    """Hamming weight of byte values (sample.c:263-269)."""
+    t = b - ((b >> 1) & 0x55)
+    t = (t & 0x33) + ((t >> 2) & 0x33)
+    return (t + (t >> 4)) & 0x0F
+
+
+def sample_cbd(seed_words, counter, n: int):
+    """sample_poly_cbd_generic_prng_16 (sample.c:311-321), batched.
+
+    n/16 fills of 96 bytes each, deterministic counters.  Returns
+    (err int64 (..., n) in [-63, 63], next_counter).
+    """
+    nfills = -(-n // 16)
+    fcounters = _c_offsets(counter, torch.arange(nfills, device=counter.device))
+    by = _words_to_bytes(_squeeze(seed_words, fcounters, 1, nwords=24))
+    by = by.reshape(by.shape[:-2] + (nfills * 16, 6))[..., :n, :]
+    hw = _popcount8(by)
+    val = (hw[..., 0] + hw[..., 1] + _popcount8(by[..., 2] & 0x1F)
+           - hw[..., 3] - hw[..., 4] - _popcount8(by[..., 5] & 0x1F))
+    return val, _c_add(counter, nfills)

@@ -1,0 +1,95 @@
+"""Port's plain NTT (the CPU path of kernel KN) vs seal_embedded_tpu.ops.ntt,
+and its fused symmetric epilogue vs the JAX fused-sym Pallas kernel in
+interpret mode, bit for bit."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seal_embedded_tpu.config import PRIMES_27BIT, default_parms
+from seal_embedded_tpu.ops import ntt as jntt
+from seal_embedded_tpu.ops.kernels.ntt import ntt_coeff_major_fused_sym
+from seal_embedded_tpu_torch.ops import modarith as tma
+from seal_embedded_tpu_torch.ops import ntt as tntt
+from seal_embedded_tpu_torch.ops.kernels.ntt import ntt_fwd
+
+torch.set_num_threads(2)
+
+_jax_ntt = jax.jit(jntt.ntt, static_argnums=1)
+
+
+def _tables(n, moduli):
+    op, quot = tntt.ntt_tables_stacked(n, moduli)
+    return (torch.as_tensor(op.astype(np.int64)),
+            torch.as_tensor(quot.astype(np.int64)),
+            torch.tensor(moduli, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("n,nprimes", [(256, 1), (1024, 1), (4096, 3)])
+def test_ntt_vs_jax(n, nprimes):
+    """Inputs in [0, 4q), with q itself present (reduce_pte's quirk)."""
+    moduli = (PRIMES_27BIT[0],) if n == 256 else default_parms(n, nprimes).moduli
+    rng = np.random.default_rng(n)
+    for q in moduli:
+        op, quot = tntt.ntt_tables(n, q)
+        jop, jquot = jntt.ntt_tables(n, q)
+        assert np.array_equal(op, jop) and np.array_equal(quot, jquot)
+        x = rng.integers(0, 4 * q, (3, n), dtype=np.int64)
+        x[0, :16] = q
+        want = np.asarray(_jax_ntt(jnp.asarray(x.astype(np.uint32)), q))
+        got = tntt.ntt(torch.as_tensor(x), q).numpy()
+        assert np.array_equal(got, want.astype(np.int64)), q
+
+
+def test_ntt_limbs_and_wrapper_vs_jax():
+    """All limbs in one call, through the KN wrapper's CPU path."""
+    n, moduli = 1024, default_parms(4096, 3).moduli
+    rng = np.random.default_rng(4)
+    x = np.stack([rng.integers(0, q + 1, (2, n), dtype=np.int64)
+                  for q in moduli])
+    op, quot, q = _tables(n, moduli)
+    got = ntt_fwd(torch.as_tensor(x), op, quot, q).numpy()
+    for l, ql in enumerate(moduli):
+        want = np.asarray(_jax_ntt(jnp.asarray(x[l].astype(np.uint32)), ql))
+        assert np.array_equal(got[l], want.astype(np.int64)), l
+
+
+def test_fused_sym_epilogue_vs_pallas_interpret():
+    """c0 = -a * ntt(s) + ntt(x) at L=2, n=256, B=128, against the JAX
+    fused-sym kernel (coefficient-major (L, n, B)) in interpret mode."""
+    moduli = tuple(int(q) for q in PRIMES_27BIT[:2])
+    L, n, B = 2, 256, 128
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(0, q, (n, B), dtype=np.int64) for q in moduli])
+    a = np.stack([rng.integers(0, q, (n, B), dtype=np.int64) for q in moduli])
+    s = np.stack([rng.integers(0, q, n, dtype=np.int64) for q in moduli])
+    want = np.asarray(ntt_coeff_major_fused_sym(
+        jnp.asarray(x.astype(np.uint32)), jnp.asarray(a.astype(np.uint32)),
+        jnp.asarray(s.astype(np.uint32)), moduli, interpret=True))
+
+    op, quot, q = _tables(n, moduli)
+    xt = torch.as_tensor(x).transpose(1, 2).contiguous()      # (L, B, n)
+    at = torch.as_tensor(a).transpose(1, 2).contiguous()
+    s_op = torch.as_tensor(s)
+    s_quot = tma.shoup_quotient(s_op, q[:, None])
+    plain = tntt.sym_epilogue(tntt.ntt_limbs(xt, op, quot, q), at, s_op,
+                              s_quot, q)
+    wrapped = ntt_fwd(xt, op, quot, q, a=at, s_op=s_op, s_quot=s_quot)
+    assert torch.equal(plain, wrapped)
+    assert np.array_equal(plain.transpose(1, 2).numpy(),
+                          want.astype(np.int64))
+
+
+def test_ntt_wrapper_checks():
+    op, quot, q = _tables(256, (PRIMES_27BIT[0],))
+    x = torch.zeros((1, 2, 256), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        ntt_fwd(x.to(torch.int32), op, quot, q)
+    with pytest.raises(ValueError):
+        ntt_fwd(x[:, :, :128], op, quot, q)
+    with pytest.raises(ValueError):
+        ntt_fwd(x, op, quot, q, s_op=op)
+    with pytest.raises(ValueError):
+        ntt_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), op, quot, q)

@@ -1,0 +1,111 @@
+"""Port's samplers vs seal_embedded_tpu.ops.sampling: values, next
+counters and ok flags, bit for bit, on the same numpy-made seeds and
+counters (including counters about to carry across 2^32)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seal_embedded_tpu.config import PRIMES_27BIT, PRIMES_30BIT
+from seal_embedded_tpu.ops import sampling as jsp
+from seal_embedded_tpu_torch.ops import sampling as tsp
+
+torch.set_num_threads(2)
+
+
+def _seeds_counters(rng, B):
+    seeds = rng.integers(0, 2 ** 32, (B, 16), dtype=np.int64)
+    ctr = rng.integers(0, 2 ** 32, (B, 2), dtype=np.int64)
+    ctr[0] = [2 ** 32 - 3, 5]              # the base draw's queue carries
+    ctr[-1] = [2 ** 32 - 1, 2 ** 32 - 1]   # u64 wrap
+    return seeds, ctr
+
+
+def _j(a):
+    return jnp.asarray(a.astype(np.uint32))
+
+
+def _np(x):
+    return np.asarray(x).astype(np.int64)
+
+
+@pytest.mark.parametrize("n,q", [(1024, PRIMES_27BIT[0]),
+                                 (8192, PRIMES_30BIT[3])])
+def test_sample_uniform_vs_jax(n, q):
+    """n = 8192 runs the chunked top-k of _rejected_positions."""
+    seeds, ctr = _seeds_counters(np.random.default_rng(n), 2)
+    cap = jsp.queue_cap_for(n, (q,))
+    wpoly, wnext, wok = jax.jit(
+        lambda s, c: jsp.sample_uniform(s, c, n, q, queue_cap=cap))(
+            _j(seeds), _j(ctr))
+    poly, nxt, ok = tsp.sample_uniform(torch.as_tensor(seeds),
+                                       torch.as_tensor(ctr), n, q,
+                                       queue_cap=cap)
+    assert np.array_equal(poly.numpy(), _np(wpoly))
+    assert np.array_equal(nxt.numpy(), _np(wnext))
+    assert np.array_equal(ok.numpy(), np.asarray(wok))
+    assert ok.all()
+
+
+def test_sample_cbd_vs_jax():
+    n = 1024
+    seeds, ctr = _seeds_counters(np.random.default_rng(11), 3)
+    werr, wnext = jsp.sample_cbd(_j(seeds), _j(ctr), n)
+    err, nxt = tsp.sample_cbd(torch.as_tensor(seeds), torch.as_tensor(ctr), n)
+    assert np.array_equal(err.numpy(), _np(werr))
+    assert np.array_equal(nxt.numpy(), _np(wnext))
+    assert err.abs().max() <= 63
+
+
+def test_counter_offsets_carry_vs_jax():
+    rng = np.random.default_rng(2)
+    ctr = rng.integers(0, 2 ** 32, (4, 2), dtype=np.int64)
+    ctr[0] = [2 ** 32 - 2, 0]
+    ctr[1] = [2 ** 32 - 1, 2 ** 32 - 1]
+    offs = np.arange(5, dtype=np.int64)
+    inc = np.array([1, 2, 3, 2 ** 32 - 1], dtype=np.int64)
+    assert np.array_equal(
+        tsp._c_offsets(torch.as_tensor(ctr), torch.as_tensor(offs)).numpy(),
+        _np(jsp._c_offsets(_j(ctr), _j(offs))))
+    assert np.array_equal(
+        tsp._c_add(torch.as_tensor(ctr), torch.as_tensor(inc)).numpy(),
+        _np(jsp._c_add(_j(ctr), _j(inc))))
+
+
+@pytest.mark.parametrize("n,p", [(4096, 0.03), (8192, 0.03), (8192, 0.05)])
+def test_rejected_positions_and_rank_select_vs_jax(n, p):
+    """Crafted rejection masks, including chunks with more than 160
+    rejections (p = 0.05 over 4096 lanes): positions, counts, ok flags and
+    the rank-select's final values and consumed counts."""
+    rng = np.random.default_rng(int(p * 100) + n)
+    B, cap = 3, 168
+    rejected = rng.random((B, n)) < p
+    rejected[0] = False
+    base = rng.integers(0, 2 ** 32, (B, n), dtype=np.int64)
+    qvals = rng.integers(0, 2 ** 32, (B, cap), dtype=np.int64)
+    qacc = rng.random((B, cap)) < 0.97
+
+    wpos, wnum, wok = jsp._rejected_positions(jnp.asarray(rejected), cap)
+    pos, num, ok = tsp._rejected_positions(torch.as_tensor(rejected), cap)
+    assert np.array_equal(pos.numpy(), _np(wpos))
+    assert np.array_equal(num.numpy(), _np(wnum))
+    assert np.array_equal(ok.numpy(), np.asarray(wok))
+
+    wfinal, wcons, wok2 = jsp._rank_select(_j(base), jnp.asarray(rejected),
+                                           _j(qvals), jnp.asarray(qacc))
+    final, cons, ok2 = tsp._rank_select(
+        torch.as_tensor(base), torch.as_tensor(rejected),
+        torch.as_tensor(qvals), torch.as_tensor(qacc))
+    assert np.array_equal(final.numpy(), _np(wfinal))
+    assert np.array_equal(cons.numpy(), _np(wcons))
+    assert np.array_equal(ok2.numpy(), np.asarray(wok2))
+
+
+def test_queue_caps_equal_jax():
+    for n in (1024, 2048, 4096, 8192, 16384):
+        assert tsp.uniform_queue_cap(n) == jsp.uniform_queue_cap(n)
+        for chain in (PRIMES_27BIT[:1], PRIMES_30BIT[:3], PRIMES_30BIT):
+            assert tsp.queue_cap_for(n, chain) == jsp.queue_cap_for(n, chain)
+    assert tsp.queue_cap_for(4096, PRIMES_30BIT[:3]) == 160
