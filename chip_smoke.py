@@ -3,18 +3,22 @@
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-The main path is symmetric CKKS encode + encrypt (``SymEncryptor``, the
-port of ``ckks/fast.py:sym_encrypt_fused``) with bit-exact encode at
-n = 4096, L = 3, B = 1024.  Phases, one line each:
+The main path has two parts, each with bit-exact encode at n = 4096,
+L = 3, B = 1024: symmetric CKKS encode + encrypt (``SymEncryptor``, the
+port of ``ckks/fast.py:sym_encrypt_fused``), and public-key generation
+plus asymmetric encode + encrypt (``gen_pk_batch`` and
+``AsymEncryptor``, the port of ``ckks/asym.py``).  Phases, one line each:
 
 1. device: the card, its power limit, nvcc's version;
 2. build: the kernels from ``seal_embedded_tpu_torch/csrc/`` (sm_90a);
-3. each kernel (KK Keccak, KN NTT, KE encode) against its plain torch
-   version at the main path's shapes, bit for bit, and timed beside it;
-4. the port on the card against all seven C-reference golden files;
-5. the headline batch with rows 0..5 set to golden vectors: verified,
-   timed with CUDA events, peak memory;
-6. the launch counters of that one headline run.
+3. each kernel (KK Keccak, KN NTT, KA asym NTT, KE encode) against its
+   plain torch version at the main path's shapes, bit for bit, and timed
+   beside it;
+4. the port on the card against all seven sym and all three asym
+   C-reference golden files (pk generation included);
+5. the sym and the asym headline batches with rows 0..5 set to golden
+   vectors: verified, timed with CUDA events, peak memory;
+6. the launch counters of each headline run.
 
 Imports no jax and nothing of the JAX package.  Any failure raises and
 exits non-zero; there is no CPU fallback.  The last line is one JSON
@@ -31,9 +35,12 @@ import time
 import numpy as np
 import torch
 
+from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor, gen_pk_batch
 from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
 from seal_embedded_tpu_torch.config import default_parms
-from seal_embedded_tpu_torch.convert import state_to_device, unpack_sk
+from seal_embedded_tpu_torch.convert import (asym_state_to_device,
+                                             pk_to_device, state_to_device,
+                                             unpack_sk)
 from seal_embedded_tpu_torch.ops import encode as enc
 from seal_embedded_tpu_torch.ops import keccak as kc
 from seal_embedded_tpu_torch.ops import modarith as ma
@@ -49,6 +56,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests"
 GOLDEN_CONFIGS = ((1024, 1), (2048, 1), (4096, 3), (8192, 3), (8192, 6),
                   (16384, 3), (16384, 13))
+ASYM_GOLDEN_CONFIGS = ((4096, 3), (8192, 6), (16384, 13))
 N, L, B = 4096, 3, 1024
 TIME_ITERS = 10
 
@@ -58,6 +66,21 @@ K2 = TPU + "keccak.py:243 _squeeze_call_1blk"
 K3 = TPU + "ntt.py:241 _pallas_ntt_call"
 K4 = TPU + "ntt.py:269 _pallas_ntt_fused_sym_call"
 K5 = TPU + "encode2.py:584 _encode_call"
+K6 = TPU + "ntt.py:342 ntt_coeff_major_fused_asym"
+
+# Launch counters of the kernel wrappers: name -> (module, attribute).
+COUNTERS = {"keccak": (k_keccak, "launches"), "ntt": (k_ntt, "launches"),
+            "ntt_asym": (k_ntt, "asym_launches"),
+            "encode": (k_encode, "launches")}
+
+
+def reset_counts():
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def read_counts():
+    return {k: getattr(module, attr) for k, (module, attr) in COUNTERS.items()}
 
 
 def seed_bytes(tag: int) -> bytes:
@@ -125,9 +148,10 @@ def phase_kernels(dev):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "shape": shape})
 
-    # KK: the uniform base draw (121 blocks), the queue (nwords=1, 168 per
-    # stream) and the CBD fills (nwords=24, 256 per stream), with counters
-    # at 2^32 - 1 and 2^64 - 1 so the carry paths run.
+    # KK: the uniform base draw (121 blocks), the queue (nwords=1, 160 per
+    # stream: the chain-aware queue_cap_for) and the CBD fills (nwords=24,
+    # 256 per stream), with counters at 2^32 - 1 and 2^64 - 1 so the carry
+    # paths run.
     seeds = u32(rng, (B, 16), dev)
     ctr = u32(rng, (B, 2), dev)
     ctr[0] = torch.tensor([2 ** 32 - 1, 0])
@@ -136,9 +160,12 @@ def phase_kernels(dev):
     nblocks = -(-4 * N // 136)
     cap = sp.queue_cap_for(N, default_parms(N, L).moduli)
     kk = "seal_embedded_tpu_torch/csrc/keccak.cu"
+    tq = 1 + torch.arange(sp.TERNARY_QUEUE_CAP, device=dev)
     cases = (("base", nblocks, None, ctr, K1),
              ("queue", 1, 1, sp._c_offsets(ctr, 1 + torch.arange(cap, device=dev)), K2),
-             ("cbd", 1, 24, sp._c_offsets(ctr, torch.arange(N // 16, device=dev)), K2))
+             ("cbd", 1, 24, sp._c_offsets(ctr, torch.arange(N // 16, device=dev)), K2),
+             ("ternary", 1, 24, ctr, K2),
+             ("ternary queue", 1, 1, sp._c_offsets(ctr, tq), K2))
     for role, nb, nw, c, replaces in cases:
         s = kc.align_seed(seeds, c).expand(c.shape[:-1] + (16,))
         s = s.reshape(-1, 16).contiguous()
@@ -190,6 +217,36 @@ def phase_kernels(dev):
         else:
             print(f"[3 kernels] KN {tag} n={n} B={batch}: bit-equal")
 
+    # KA at the asym headline's shape with the 4096_3 golden pk, then at
+    # n = 16384 with the 16384_13 golden pk (128 KB of shared memory per
+    # block); inputs below q + 1 with q itself at the head of every row.
+    for n, lim, batch in ((N, L, B), (16384, 13, 2)):
+        gold = load_golden("asym", n, lim)
+        pk = pk_to_device(gold["pk0"], gold["pk1"], dev)
+        q = torch.tensor(default_parms(n, lim).moduli, dtype=torch.int64,
+                         device=dev)
+        op, quot = (torch.as_tensor(t.astype(np.int64), device=dev)
+                    for t in ntt_ops.ntt_tables_stacked(n, q.tolist()))
+        rows_in = []
+        for _ in range(3):
+            x = u32(rng, (lim, batch, n), dev) % (q[:, None, None] + 1)
+            x[:, :, :8] = q[:, None, None]
+            rows_in.append(x)
+        args = (*rows_in, op, quot, q)
+        for p in pk:
+            args += (p, ma.shoup_quotient(p, q[:, None]))
+        got = k_ntt.ntt_asym(*args)
+        want = ntt_ops.ntt_asym_plain(*args)
+        err = max(require_equal(f"KA {c} n={n} B={batch}", g, w)
+                  for c, g, w in zip(("c0", "c1"), got, want))
+        if n == N:
+            ms, pms = timed_pair(lambda: k_ntt.ntt_asym(*args),
+                                 lambda: ntt_ops.ntt_asym_plain(*args))
+            row("ntt_asym", kn, K6, "ntt_asym", err, ms, pms,
+                f"(L, B, n) = ({lim}, {batch}, {n}), golden pk")
+        else:
+            print(f"[3 kernels] KA n={n} L={lim} B={batch}: bit-equal")
+
     # KE at (1024, 2048) -> n = 4096 with edge rows: +0.0, -0.0, f32
     # subnormals, and magnitudes around the 2^63 overflow bound.  The
     # reference is the plain encode on CPU copies.
@@ -225,18 +282,24 @@ def phase_kernels(dev):
     return rows
 
 
-def load_golden(n, nprimes):
-    d = np.load(GOLDEN / f"golden_sym_{n}_{nprimes}.npz")
+def load_golden(kind, n, nprimes):
+    """The C-reference vectors of golden_{kind}_{n}_{nprimes}.npz, stacked:
+    v, pt, pte (G, ...), c0, c1 (L, G, n); for asym also the pk (L, n)
+    and its error ep."""
+    d = np.load(GOLDEN / f"golden_{kind}_{n}_{nprimes}.npz")
     G = sum(1 for k in d.files if k.startswith("v_"))
-    return {
-        "sk": unpack_sk(d["sk_packed_0"], n),
-        "v": np.stack([d[f"v_{t}"] for t in range(G)]),
-        "pte": np.stack([d[f"pte_{t}"] for t in range(G)]),
-        "c0": np.stack([np.stack([d[f"c0_{nprimes * t + i}"]
-                                  for t in range(G)]) for i in range(nprimes)]),
-        "c1": np.stack([np.stack([d[f"c1_{nprimes * t + i}"]
-                                  for t in range(G)]) for i in range(nprimes)]),
-    }
+    gold = {"sk": unpack_sk(d["sk_packed_0"], n)}
+    for key in ("v", "pt", "pte"):
+        gold[key] = np.stack([d[f"{key}_{t}"] for t in range(G)])
+    for key in ("c0", "c1"):
+        gold[key] = np.stack([np.stack([d[f"{key}_{nprimes * t + i}"]
+                                        for t in range(G)])
+                              for i in range(nprimes)])
+    if kind == "asym":
+        gold["ep"] = d["pk_ep"].astype(np.int64)
+        for key in ("pk0", "pk1"):
+            gold[key] = np.stack([d[f"{key}_{i}"] for i in range(nprimes)])
+    return gold
 
 
 def check_golden_rows(out, gold, name):
@@ -245,8 +308,9 @@ def check_golden_rows(out, gold, name):
         got = out[key][:, :G].cpu().numpy()
         if not np.array_equal(got, gold[key]):
             raise AssertionError(f"{name}: {key} differs from the golden file")
-    if not np.array_equal(out["pte"][:G].cpu().numpy(), gold["pte"]):
-        raise AssertionError(f"{name}: pte differs from the golden file")
+    for key in ("pt", "pte"):
+        if not np.array_equal(out[key][:G].cpu().numpy(), gold[key]):
+            raise AssertionError(f"{name}: {key} differs from the golden file")
     if not bool(out["ok"].all()):
         raise AssertionError(f"{name}: ok is False")
 
@@ -256,20 +320,47 @@ def golden_seeds(G):
             np.tile(kc.seed_to_words(seed_bytes(3)), (G, 1)))
 
 
+def golden_pk(gold, parms, dev):
+    """gen_pk_batch on the card from the golden sk, pk seed and ep."""
+    seed = kc.seed_to_words(seed_bytes(4)).astype(np.int64)
+    return gen_pk_batch(torch.as_tensor(gold["sk"], device=dev),
+                        torch.as_tensor(seed, device=dev),
+                        torch.as_tensor(gold["ep"], device=dev), parms)
+
+
+def check_pk(pk, gold, name):
+    for key, got in zip(("pk0", "pk1"), pk):
+        if not np.array_equal(got.cpu().numpy(), gold[key]):
+            raise AssertionError(f"{name}: gen_pk's {key} differs from the "
+                                 "golden file")
+
+
 def phase_golden(dev):
     for n, nprimes in GOLDEN_CONFIGS:
-        gold = load_golden(n, nprimes)
+        gold = load_golden("sym", n, nprimes)
         G = gold["v"].shape[0]
         args = state_to_device(gold["v"], gold["sk"], *golden_seeds(G), dev)
         out = SymEncryptor(default_parms(n, nprimes), dev)(*args)
         check_golden_rows(out, gold, f"golden_sym_{n}_{nprimes}")
         print(f"[4 golden] golden_sym_{n}_{nprimes}.npz: {G} x {nprimes} "
-              f"c0/c1/pte bit-exact on {dev}")
+              f"c0/c1/pt/pte bit-exact on {dev}")
+    for n, nprimes in ASYM_GOLDEN_CONFIGS:
+        name = f"golden_asym_{n}_{nprimes}"
+        gold = load_golden("asym", n, nprimes)
+        parms = default_parms(n, nprimes)
+        G = gold["v"].shape[0]
+        check_pk(golden_pk(gold, parms, dev), gold, name)
+        args = asym_state_to_device(gold["v"], golden_seeds(G)[1], dev)
+        pk = pk_to_device(gold["pk0"], gold["pk1"], dev)
+        out = AsymEncryptor(parms, *pk, dev)(*args)
+        check_golden_rows(out, gold, name)
+        print(f"[4 golden] {name}.npz: gen_pk pk0/pk1 and {G} x {nprimes} "
+              f"c0/c1/pt/pte bit-exact on {dev}")
 
 
-def phase_headline(dev, smi, kernel_rows):
-    parms = default_parms(N, L)
-    gold = load_golden(N, L)
+def headline_inputs(gold):
+    """B messages and per-message seeds made from seed 0, rows 0..G-1 set
+    to the golden messages and seeds: (values, share, err)."""
     G = gold["v"].shape[0]
     rng = np.random.default_rng(0)
     values = rng.uniform(-1, 1, (B, N // 2)).astype(np.float32)
@@ -277,27 +368,61 @@ def phase_headline(dev, smi, kernel_rows):
     err = rng.integers(0, 2 ** 32, (B, 16), dtype=np.int64).astype(np.uint32)
     values[:G] = gold["v"]
     share[:G], err[:G] = golden_seeds(G)
+    return values, share, err
+
+
+def report_headline(tag, gold, ms, peak, smi, extra=""):
+    G = gold["v"].shape[0]
+    print(f"[5 headline] {tag} n={N} L={L} B={B}: rows 0..{G - 1} "
+          f"golden-bitexact ({G}x{L}), ok for all {B}; "
+          f"{B / ms * 1e3:.1f} enc/s, {ms:.3f} ms/batch (median of "
+          f"{TIME_ITERS}), peak {peak / 2 ** 20:.1f} MiB{extra}; "
+          f"{smi}")
+
+
+def phase_headline_sym(dev, smi):
+    gold = load_golden("sym", N, L)
+    values, share, err = headline_inputs(gold)
     args = state_to_device(values, gold["sk"], share, err, dev)
-    encryptor = SymEncryptor(parms, dev)
+    encryptor = SymEncryptor(default_parms(N, L), dev)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k_keccak.launches = k_ntt.launches = k_encode.launches = 0
+    reset_counts()
     out = encryptor(*args)
     torch.cuda.synchronize()
-    counts = {"keccak": k_keccak.launches, "ntt": k_ntt.launches,
-              "encode": k_encode.launches}
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check_golden_rows(out, gold, "headline batch")
+    check_golden_rows(out, gold, "sym headline batch")
 
     ms = cuda_time_ms(lambda: encryptor(*args), TIME_ITERS)
-    print(f"[5 headline] n={N} L={L} B={B}: rows 0..{G - 1} golden-bitexact "
-          f"({G}x{L}), ok for all {B}; {B / ms * 1e3:.1f} enc/s, "
-          f"{ms:.3f} ms/batch (median of {TIME_ITERS}), peak "
-          f"{peak / 2 ** 20:.1f} MiB; {torch.cuda.get_device_name(0)}, {smi}")
-    for r in kernel_rows:
-        print(f"[5 headline] kernel {r['name']} ({r['shape']}): "
-              f"{r['ms']:.4f} ms, plain torch {r['plain_ms']:.4f} ms")
+    report_headline("sym", gold, ms, peak, smi)
+    return counts
+
+
+def phase_headline_asym(dev, smi):
+    """gen_pk from the golden key material, then one asym batch."""
+    parms = default_parms(N, L)
+    gold = load_golden("asym", N, L)
+    values, _, seeds = headline_inputs(gold)
+    args = asym_state_to_device(values, seeds, dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    pk = golden_pk(gold, parms, dev)
+    encryptor = AsymEncryptor(parms, *pk, dev)
+    out = encryptor(*args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_pk(pk, gold, "asym headline")
+    check_golden_rows(out, gold, "asym headline batch")
+
+    ms = cuda_time_ms(lambda: encryptor(*args), TIME_ITERS)
+    pk_ms = cuda_time_ms(lambda: golden_pk(gold, parms, dev), 3, 1)
+    report_headline("asym", gold, ms, peak, smi,
+                    f"; gen_pk {pk_ms:.3f} ms (median of 3)")
     return counts
 
 
@@ -307,13 +432,21 @@ def main():
     phase_build()
     rows = phase_kernels(dev)
     phase_golden(dev)
-    counts = phase_headline(dev, smi, rows)
-    missing = [k for k, c in counts.items() if c < 1]
-    if missing:
-        raise AssertionError(f"kernels not launched by the main path: {missing}")
-    print(f"[6 launches] headline run: {counts}")
+    runs = {"sym": (phase_headline_sym(dev, smi), ("keccak", "ntt", "encode")),
+            "asym": (phase_headline_asym(dev, smi),
+                     ("keccak", "ntt", "ntt_asym", "encode"))}
+    for path, (counts, needed) in runs.items():
+        missing = [k for k in needed if counts[k] < 1]
+        if missing:
+            raise AssertionError(f"kernels not launched by the {path} "
+                                 f"headline run: {missing}")
+        print(f"[6 launches] {path} headline run: {counts}")
+    for r in rows:
+        print(f"[5 headline] kernel {r['name']} ({r['shape']}): "
+              f"{r['ms']:.4f} ms, plain torch {r['plain_ms']:.4f} ms")
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
-                "replaces": r["replaces"], "launches": counts[r["counter"]],
+                "replaces": r["replaces"],
+                "launches": sum(c[r["counter"]] for c, _ in runs.values()),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"]} for r in rows]
     print(json.dumps({"kernels": kernels}))

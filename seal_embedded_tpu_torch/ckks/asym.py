@@ -1,0 +1,129 @@
+"""Batched asymmetric (public-key) encode + encrypt and public-key
+generation with the reference's PRNG semantics.
+
+Port of ``seal_embedded_tpu/ckks/asym.py`` (ckks_asym.c:159-286):
+
+* gen_pk: pk1 = a drawn per prime from the shareable stream, whose
+  counter chains across primes; pk0 = -a * ntt(s) + ntt(ep) mod q.
+* encrypt: one private stream per message feeds u <- ternary, then
+  e0 <- CBD, then e1 <- CBD, the counter chaining from draw to draw; then
+  per prime c1 = pk1 * ntt(u) + ntt(e1) and c0 = pk0 * ntt(u) + ntt(pte),
+  pte = pt + e0.  The per-prime step has no sequential dependency: all
+  limbs go through kernel KA in one launch, at every degree.
+
+On CPU tensors every kernel wrapper runs its plain version, so the same
+module is the reference path of the tests.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import Parms
+from ..ops import modarith as ma
+from ..ops import sampling as sp
+from ..ops.encode import check_encode_mode
+from ..ops.kernels.ntt import ntt_asym, ntt_fwd
+from ..ops.ntt import ntt_tables_stacked
+from .fast import EncryptorBase
+
+
+# Small signed values (CBD's [-63, 63]) -> [0, q): the ternary fold.
+_signed_to_modq = sp.ternary_to_modq_any
+
+
+class AsymEncryptor(EncryptorBase):
+    """asym_encrypt_fused for one parameter set and one public key, with
+    its tables (see EncryptorBase) and pk0, pk1 and their Shoup quotients
+    (pk0_quot, pk1_quot) resident on `device` as buffers.
+
+    pk0, pk1: int64 (L, n) u32 values in [0, q), NTT form.
+    forward(values f32 (B, <= n/2), seed_words int64 (B, 16) u32 private
+    PRNG seeds) returns a dict with c0, c1 int64 (L, B, n) u32 values, pt
+    and pte int64 (B, n) and ok bool (B,), the layouts of the JAX function.
+    """
+
+    def __init__(self, parms: Parms, pk0, pk1, device=None):
+        super().__init__(parms, device)
+        qv = self.q[:, None]
+        for name, pk in (("pk0", pk0), ("pk1", pk1)):
+            pk = torch.as_tensor(pk, device=device).to(torch.int64)
+            self.register_buffer(name, pk.contiguous())
+            self.register_buffer(f"{name}_quot",
+                                 ma.shoup_quotient(pk, qv).contiguous())
+
+    def forward(self, values, seed_words):
+        B = values.shape[0]
+        n = self.parms.degree
+        L = len(self.moduli)
+
+        pt, ok = self.encode(values)
+        # Private stream, counters chaining u -> e0 -> e1 (ckks_asym.c:173-203).
+        counter = sp.counter_zero((B,), values.device)
+        u, counter, ok_t = sp.sample_ternary(seed_words, counter, n)
+        e0, counter = sp.sample_cbd(seed_words, counter, n)
+        e1, counter = sp.sample_cbd(seed_words, counter, n)
+        pte = pt + e0
+        ok = ok & ok_t
+
+        mods = self.limb_mod()
+        u_l = sp.ternary_to_modq_any(u[None], mods).expand(L, B, n)
+        e1_l = _signed_to_modq(e1[None], mods.q).expand(L, B, n)
+        pte_l = ma.reduce_pte_i64(pte[None], mods)
+        c0, c1 = ntt_asym(u_l.contiguous(), e1_l.contiguous(), pte_l,
+                          self.ntt_op, self.ntt_quot, self.q,
+                          self.pk0, self.pk0_quot, self.pk1, self.pk1_quot)
+        return {"c0": c0, "c1": c1, "pt": pt, "pte": pte, "ok": ok}
+
+
+def gen_pk_batch(sk_signed, pk_seed_words, ep, parms: Parms):
+    """Public-key generation (ckks_asym.c:159-171).
+
+    sk_signed: int (n,) in {-1, 0, 1}; pk_seed_words: int64 (16,) or
+    (1, 16) u32 shareable seed; ep: int (n,) CBD error.  Returns (pk0, pk1)
+    int64 (L, n) u32 values on sk_signed's device.
+    """
+    n = parms.degree
+    dev = sk_signed.device
+    moduli = tuple(int(q) for q in parms.moduli)
+    seeds = pk_seed_words.reshape(1, 16)
+    qcap = sp.queue_cap_for(n, moduli)
+
+    counter = sp.counter_zero((1,), dev)
+    a = []
+    for q in moduli:
+        a_l, counter, _ = sp.sample_uniform(seeds, counter, n, q,
+                                            queue_cap=qcap)
+        a.append(a_l[0])
+    pk1 = torch.stack(a)
+
+    # ntt(s) and ntt(ep) as the two rows of one KN launch: (L, 2, n).
+    op, quot = (torch.as_tensor(t.astype(np.int64), device=dev)
+                for t in ntt_tables_stacked(n, moduli))
+    m = ma.modpack(moduli, dev)
+    mods = ma.Mod(m.q[:, None], m.r0[:, None], m.r1[:, None], None)  # (L, 1)
+    rows = torch.stack([
+        sp.ternary_to_modq_any(sk_signed.to(torch.int64), mods),
+        _signed_to_modq(ep.to(torch.int64), mods.q)], dim=1)
+    ntts = ntt_fwd(rows, op, quot, m.q)
+    pk0 = ma.add_mod(ma.neg_mod(ma.mul_mod(pk1, ntts[:, 0], mods), mods),
+                     ntts[:, 1], mods)
+    return pk0, pk1
+
+
+def asym_encrypt_fused(values, pk0, pk1, seed_words, parms: Parms,
+                       encode_mode: str = "dd"):
+    """Batched asymmetric encode + encrypt (the JAX function's signature);
+    builds an AsymEncryptor on values' device and runs it once.  Every
+    encode_mode of the JAX package is the one bit-exact f64 encode here."""
+    check_encode_mode(encode_mode)
+    return AsymEncryptor(parms, pk0, pk1, values.device)(values, seed_words)
+
+
+def asym_encrypt_batch(values, pk0, pk1, seed_words, parms: Parms,
+                       encode_mode: str = "f64"):
+    """The JAX package's unfused asym entry; the same bits as
+    asym_encrypt_fused, so the same module serves it."""
+    return asym_encrypt_fused(values, pk0, pk1, seed_words, parms,
+                              encode_mode)

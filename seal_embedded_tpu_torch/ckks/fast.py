@@ -29,22 +29,16 @@ from ..ops.kernels.ntt import ntt_fwd
 from ..ops.ntt import ntt_tables_stacked
 
 
-class SymEncryptor(nn.Module):
-    """sym_encrypt_fused for one parameter set, with its tables resident on
-    `device` as buffers: NTT roots (op, quot), the modulus vector, the
-    Barrett constants, encode index map and IFFT twiddles.
-
-    forward(values f32 (B, <= n/2), sk_signed int (n,) in {-1, 0, 1},
-    share_words, err_words int64 (B, 16) u32 PRNG seeds) returns a dict
-    with c0, c1 int64 (L, B, n) u32 values, pte and pt int64 (B, n) and
-    ok bool (B,), the layouts of the JAX function.
-    """
+class EncryptorBase(nn.Module):
+    """The per-parameter-set state both encryptors keep resident on
+    `device` as buffers: NTT roots (ntt_op, ntt_quot), the modulus vector
+    q, the Barrett constants r0, r1, the encode index map and the IFFT
+    twiddles."""
 
     def __init__(self, parms: Parms, device=None):
         super().__init__()
         self.parms = parms
         self.moduli = tuple(int(q) for q in parms.moduli)
-        self.queue_cap = sp.queue_cap_for(parms.degree, self.moduli)
         self.scale_n = scale_over_n(parms)
         op, quot = ntt_tables_stacked(parms.degree, self.moduli)
         self.register_buffer("ntt_op", torch.as_tensor(
@@ -60,6 +54,31 @@ class SymEncryptor(nn.Module):
         self.register_buffer("tw_re", tw_re)
         self.register_buffer("tw_im", tw_im)
 
+    def encode(self, values):
+        """Kernel KE: (pt int64 (B, n), ok (B,))."""
+        return encode_f64(values, self.imap, self.tw_re, self.tw_im,
+                          self.scale_n)
+
+    def limb_mod(self):
+        """The per-limb Mod, shaped (L, 1, 1) against (L, B, n) data."""
+        return ma.Mod(self.q[:, None, None], self.r0[:, None, None],
+                      self.r1[:, None, None], None)
+
+
+class SymEncryptor(EncryptorBase):
+    """sym_encrypt_fused for one parameter set, with its tables resident
+    on `device` (see EncryptorBase).
+
+    forward(values f32 (B, <= n/2), sk_signed int (n,) in {-1, 0, 1},
+    share_words, err_words int64 (B, 16) u32 PRNG seeds) returns a dict
+    with c0, c1 int64 (L, B, n) u32 values, pte and pt int64 (B, n) and
+    ok bool (B,), the layouts of the JAX function.
+    """
+
+    def __init__(self, parms: Parms, device=None):
+        super().__init__(parms, device)
+        self.queue_cap = sp.queue_cap_for(parms.degree, self.moduli)
+
     def ntt_secret(self, sk_signed):
         """ntt(s) per limb: (L, n), s mapped {-1, 0, 1} -> {q-1, 0, 1}."""
         qv = self.q[:, None, None]
@@ -74,13 +93,10 @@ class SymEncryptor(nn.Module):
         dev = values.device
 
         # --- encode + error (ckks_encode_base + ckks_sym_init) ---
-        pt, ok = encode_f64(values, self.imap, self.tw_re, self.tw_im,
-                            self.scale_n)
+        pt, ok = self.encode(values)
         e, _ = sp.sample_cbd(err_words, sp.counter_zero((B,), dev), n)
         pte = pt + e
-        mods_b = ma.Mod(self.q[:, None, None], self.r0[:, None, None],
-                        self.r1[:, None, None], None)
-        pte_red = ma.reduce_pte_i64(pte[None], mods_b)       # (L, B, n)
+        pte_red = ma.reduce_pte_i64(pte[None], self.limb_mod())  # (L, B, n)
 
         # --- uniform a per prime; the counter chains from limb to limb ---
         counter = sp.counter_zero((B,), dev)

@@ -20,13 +20,35 @@ def parms_from_jax(p) -> Parms:
                  scale=float(p.scale))
 
 
-def unpack_sk(sk_packed, n: int) -> np.ndarray:
-    """2-bit packed secret key (4 coefficients per byte, most significant
-    pair first, value + 1) -> signed int32 (n,) in {-1, 0, 1}."""
-    packed = np.frombuffer(bytes(sk_packed), dtype=np.uint8)
+def unpack_ternary(packed, n: int) -> np.ndarray:
+    """2-bit packed ternary polynomial (4 coefficients per byte, most
+    significant pair first, value + 1), as the reference stores the secret
+    key and u -> signed int32 (n,) in {-1, 0, 1}."""
+    packed = np.frombuffer(bytes(packed), dtype=np.uint8)
     i = np.arange(n)
     shift = (6 - (i % 4) * 2).astype(np.uint8)
     return (((packed[i // 4] >> shift) & 3).astype(np.int32) - 1)
+
+
+unpack_sk = unpack_ternary
+
+
+def _u32_tensor(words, device):
+    return torch.as_tensor(np.asarray(words, dtype=np.uint32).astype(np.int64),
+                           device=device)
+
+
+def pk_to_device(pk0, pk1, device=None):
+    """Public key u32 (L, n) numpy arrays -> int64 tensors on `device`."""
+    return _u32_tensor(pk0, device), _u32_tensor(pk1, device)
+
+
+def asym_state_to_device(values, seed_words, device=None):
+    """numpy inputs of asym_encrypt_fused -> the port's tensors: values
+    float32 (B, vlen), private seed words int64 (B, 16)."""
+    return (torch.as_tensor(np.asarray(values, dtype=np.float32),
+                            device=device),
+            _u32_tensor(seed_words, device))
 
 
 def state_to_device(values, sk_signed, share_words, err_words, device=None):
@@ -36,7 +58,4 @@ def state_to_device(values, sk_signed, share_words, err_words, device=None):
                             device=device),
             torch.as_tensor(np.asarray(sk_signed, dtype=np.int64),
                             device=device),
-            torch.as_tensor(np.asarray(share_words, dtype=np.uint32)
-                            .astype(np.int64), device=device),
-            torch.as_tensor(np.asarray(err_words, dtype=np.uint32)
-                            .astype(np.int64), device=device))
+            _u32_tensor(share_words, device), _u32_tensor(err_words, device))

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 At first use, ``nvcc`` compiles every ``seal_embedded_tpu_torch/csrc/*.cu``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
-which ``ctypes`` loads.  Each entry point takes its pointers and the CUDA
+for Hopper (``sm_90a``), one process per source, all at once, and links
+them into one shared library with a plain C interface, which ``ctypes``
+loads.  Each entry point takes its pointers and the CUDA
 stream as ``void*`` and returns ``cudaGetLastError()``; ``check`` turns a
 non-zero code into an exception.
 
@@ -30,8 +31,7 @@ LIB_NAME = "libseal_kernels.so"
 # -fmad=false: no FMA contraction anywhere, so KE's f64 rounding matches
 # the IEEE reference (encode.cu also uses the _rn intrinsics).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 _lib = None
 
@@ -59,19 +59,39 @@ def library_path() -> pathlib.Path:
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the nvcc commands side by side; return their logs, or raise
+    with the first failure's stderr once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{log}")
+    return logs
+
+
 def build() -> pathlib.Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     so = library_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "nvcc.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{res.stderr}")
+    tag = os.getpid()
+    objs = [so.with_name(f"{src.stem}.{tag}.o") for src in sources()]
+    tmp = so.with_name(f"{LIB_NAME}.{tag}.tmp")
+    try:
+        logs = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for src, o in zip(sources(), objs)])
+        _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    (so.parent / "nvcc.log").write_text("".join(logs))
     os.replace(tmp, so)
     return so
 

@@ -1,11 +1,13 @@
-"""Wrapper of kernel KN (``csrc/ntt.cu``): forward NTT of (L, B, n) rows,
-optionally fused with the symmetric c0 epilogue.
+"""Wrappers of kernels KN and KA (``csrc/ntt.cu``).
 
-Replaces both TPU NTT kernels on the symmetric path (K3 ntt_coeff_major,
-K4 ntt_coeff_major_fused_sym) and keeps the JAX package's (L, B, n)
-layout at the boundary.  On CPU tensors it runs the plain version
-(``ops.ntt.ntt_limbs`` and ``ops.ntt.sym_epilogue``); on CUDA tensors it
-launches KN or raises.
+KN, ``ntt_fwd``: forward NTT of (L, B, n) rows, optionally fused with
+the symmetric c0 epilogue; replaces K3 ntt_coeff_major and K4
+ntt_coeff_major_fused_sym.  KA, ``ntt_asym``: the three NTTs and the
+public-key combine of the asymmetric path; replaces K6
+ntt_coeff_major_fused_asym.  Both keep the JAX package's (L, B, n)
+layout at the boundary and count their launches apart (``launches``,
+``asym_launches``).  On CPU tensors each runs its plain version
+(``ops.ntt``); on CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ import ctypes
 import torch
 
 from ..modarith import MASK32
-from ..ntt import ntt_limbs, sym_epilogue
+from ..ntt import ntt_asym_plain, ntt_limbs, sym_epilogue
 from . import build
 
 launches = 0
+asym_launches = 0
 
 
 def ntt_fwd(x, op, quot, q, a=None, s_op=None, s_quot=None):
@@ -60,3 +63,40 @@ def ntt_fwd(x, op, quot, q, a=None, s_op=None, s_quot=None):
                    build.stream(out)), name)
     launches += 1
     return out.to(torch.int64) & MASK32
+
+
+def ntt_asym(u, e1, pte, op, quot, q, p0_op, p0_quot, p1_op, p1_quot):
+    """The asymmetric per-limb step: returns (c0, c1) with
+    c0 = pk0 * ntt(u) + ntt(pte) and c1 = pk1 * ntt(u) + ntt(e1) mod q.
+
+    u, e1, pte: int64 (L, B, n) u32 values below 4q; op, quot: int64 (L, n)
+    root tables; q: int64 (L,); p0_op, p0_quot, p1_op, p1_quot: int64
+    (L, n), the Shoup pairs of pk0 and pk1.
+    """
+    global asym_launches
+    name = "ntt_asym"
+    rows = [u, e1, pte]
+    pk = [p0_op, p0_quot, p1_op, p1_quot]
+    tensors = rows + [op, quot, q] + pk
+    build.require(all(t.dtype == torch.int64 for t in tensors),
+                  f"{name}: all inputs must be int64")
+    build.require(u.dim() == 3, f"{name}: u must be (L, B, n)")
+    L, B, n = u.shape
+    build.require(n >= 2 and n & (n - 1) == 0, f"{name}: n must be a power of 2")
+    build.require(all(t.shape == u.shape for t in rows),
+                  f"{name}: u, e1 and pte must have one (L, B, n) shape")
+    build.require(all(t.shape == (L, n) for t in [op, quot] + pk)
+                  and q.shape == (L,),
+                  f"{name}: tables and pk pairs must be (L, n), q (L,)")
+    if build.on_cpu(name, *tensors):
+        return ntt_asym_plain(*tensors)
+
+    i32 = [t.to(torch.int32) for t in tensors]
+    c0, c1 = (torch.empty((L, B, n), dtype=torch.int32, device=u.device)
+              for _ in range(2))
+    fn = build.entry("sek_ntt_asym", [ctypes.c_void_p] * 12
+                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    build.check(fn(*map(build.ptr, i32 + [c0, c1]), L, B, n.bit_length() - 1,
+                   build.stream(c0)), name)
+    asym_launches += 1
+    return c0.to(torch.int64) & MASK32, c1.to(torch.int64) & MASK32

@@ -1,5 +1,5 @@
-"""Batched negacyclic NTT on torch tensors: the plain version of kernel KN
-(``ops/kernels/ntt.py``).
+"""Batched negacyclic NTT on torch tensors: the plain versions of kernels
+KN and KA (``ops/kernels/ntt.py``).
 
 Port of ``seal_embedded_tpu/ops/ntt.py`` (the reference's device/lib/
 ntt.c): each of the log2(n) rounds is one vectorized pairwise op over a
@@ -88,6 +88,30 @@ def sym_epilogue(v, a, s_op, s_quot, q):
     t = torch.where(t == 0, t, qv - t)
     v = t + v
     return torch.where(v >= qv, v - qv, v)
+
+
+def asym_epilogue(nu, other, p_op, p_quot, q):
+    """pk * ntt(u) + other mod q in Shoup form, exactly the combine of the
+    JAX fused-asym kernel (kernels/ntt.py:328-334).
+
+    nu, other: int64 (L, B, n) in [0, q); p_op, p_quot: (L, n) Shoup pair
+    of a public-key component; q: (L,)."""
+    L = nu.shape[0]
+    qv = q.reshape(L, 1, 1)
+    t = mul_mod_shoup_lazy(nu, p_op[:, None, :], p_quot[:, None, :], qv)
+    t = torch.where(t >= qv, t - qv, t)
+    v = t + other
+    return torch.where(v >= qv, v - qv, v)
+
+
+def ntt_asym_plain(u, e1, pte, op, quot, q, p0_op, p0_quot, p1_op, p1_quot):
+    """The plain version of kernel KA: three NTTs and the two pk combines,
+    c0 = pk0 * ntt(u) + ntt(pte) and c1 = pk1 * ntt(u) + ntt(e1) mod q.
+    Shapes as ntt_limbs and asym_epilogue; returns (c0, c1)."""
+    nu = ntt_limbs(u, op, quot, q)
+    c1 = asym_epilogue(nu, ntt_limbs(e1, op, quot, q), p1_op, p1_quot, q)
+    c0 = asym_epilogue(nu, ntt_limbs(pte, op, quot, q), p0_op, p0_quot, q)
+    return c0, c1
 
 
 def ntt(x, q: int):

@@ -7,6 +7,9 @@ device/lib/sample.c), with the same PRNG byte-consumption pattern:
   c+1, c+2, ...) in order.  The j-th rejected base position ends up with
   the j-th accepted queue draw, so one batched squeeze of a bounded queue
   plus a rank-select reproduces the loop with no sequential step.
+* The ternary sampler does the same per 96-byte block, with 8 one-byte
+  refills; its blocks run in sequence, since each block's counter
+  depends on the rejections of the blocks before it.
 * Counters are u64 values carried as int64 (..., 2) (lo, hi) u32 pairs,
   with the carry into hi on every offset path.
 
@@ -21,7 +24,11 @@ import torch
 
 from .keccak import MASK32, align_seed
 from .kernels.keccak import keccak_squeeze
-from .modarith import as_mod, barrett32
+from .modarith import _q, as_mod, barrett32
+
+# One-byte refills drawn per 96-byte ternary block (sample.c:228-233):
+# more than 8 rejected bytes (p = 2/256 each) in one block only clears ok.
+TERNARY_QUEUE_CAP = 8
 
 
 def uniform_queue_cap(n: int, p_max: float | None = None) -> int:
@@ -181,6 +188,55 @@ def sample_uniform(seed_words, counter, n: int, q,
 
     final, consumed, ok = _rank_select(base, rejected, qvals, qacc)
     return barrett32(final, m), _c_add(counter, 1 + consumed), ok
+
+
+def _ternary_block(seed_words, counter, count_here: int):
+    """One 96-byte ternary block + its rejection queue (sample.c:223-241):
+    bytes >= 0xFE are redrawn from one-byte refills at counters c+1, c+2,
+    ...  Returns ({-1, 0, 1} int64 (..., 96), next_counter, ok)."""
+    dev = counter.device
+    base_bytes = _words_to_bytes(_squeeze(seed_words, counter, 1, nwords=24))
+    rejected = base_bytes >= 0xFE
+
+    offs = 1 + torch.arange(TERNARY_QUEUE_CAP, device=dev)
+    qvals = _squeeze(seed_words, _c_offsets(counter, offs), 1,
+                     nwords=1)[..., 0] & 0xFF   # first byte of each refill
+    qacc = qvals < 0xFE
+
+    # The reference touches only the first count_here bytes of a tail block
+    # (sample.c:228), so later rejections consume nothing.
+    if count_here < 96:
+        rejected = rejected & (torch.arange(96, device=dev) < count_here)
+    final, consumed, ok = _rank_select(base_bytes, rejected, qvals, qacc)
+    return final % 3 - 1, _c_add(counter, 1 + consumed), ok
+
+
+def sample_ternary(seed_words, counter, n: int):
+    """sample_small_poly_ternary_prng_96 (sample.c:218-242), batched.
+
+    n // 96 full blocks in sequence (each block's counter depends on the
+    previous block's rejections), then a tail block of n % 96 bytes.
+    Returns (signed {-1, 0, 1} int64 (..., n), next_counter, ok).
+    """
+    nfull, tail = divmod(n, 96)
+    ok = torch.ones(counter.shape[:-1], dtype=torch.bool, device=counter.device)
+    blocks = []
+    for count_here in [96] * nfull + ([tail] if tail else []):
+        vals, counter, ok_b = _ternary_block(seed_words, counter, count_here)
+        blocks.append(vals[..., :count_here])
+        ok = ok & ok_b
+    return torch.cat(blocks, dim=-1), counter, ok
+
+
+def ternary_to_modq_any(signed, q):
+    """{-1, 0, 1} -> {q-1, 0, 1} (sample.c:98-111) for an int, a Mod, or
+    an int64 tensor of moduli that broadcasts against `signed`.  Any small
+    signed value x (CBD's [-63, 63] included) maps the same way, to x + q
+    where x < 0."""
+    return torch.where(signed < 0, signed + _q(q), signed)
+
+
+ternary_to_modq = ternary_to_modq_any
 
 
 def _popcount8(b):

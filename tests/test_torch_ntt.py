@@ -1,6 +1,7 @@
 """Port's plain NTT (the CPU path of kernel KN) vs seal_embedded_tpu.ops.ntt,
-and its fused symmetric epilogue vs the JAX fused-sym Pallas kernel in
-interpret mode, bit for bit."""
+its fused symmetric epilogue vs the JAX fused-sym Pallas kernel, and the
+plain version of kernel KA vs the JAX fused-asym Pallas kernel (K6), both
+kernels in interpret mode, bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -10,10 +11,11 @@ import torch
 
 from seal_embedded_tpu.config import PRIMES_27BIT, default_parms
 from seal_embedded_tpu.ops import ntt as jntt
-from seal_embedded_tpu.ops.kernels.ntt import ntt_coeff_major_fused_sym
+from seal_embedded_tpu.ops.kernels.ntt import (ntt_coeff_major_fused_asym,
+                                               ntt_coeff_major_fused_sym)
 from seal_embedded_tpu_torch.ops import modarith as tma
 from seal_embedded_tpu_torch.ops import ntt as tntt
-from seal_embedded_tpu_torch.ops.kernels.ntt import ntt_fwd
+from seal_embedded_tpu_torch.ops.kernels.ntt import ntt_asym, ntt_fwd
 
 torch.set_num_threads(2)
 
@@ -93,3 +95,82 @@ def test_ntt_wrapper_checks():
         ntt_fwd(x, op, quot, q, s_op=op)
     with pytest.raises(ValueError):
         ntt_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), op, quot, q)
+
+
+def _asym_case(moduli, L, n, B, seed):
+    """u, e1, pte coefficient-major (L, n, B) in [0, q], q at a few
+    entries; pk0, pk1 (L, n) in [0, q)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(3):
+        x = np.stack([rng.integers(0, q + 1, (n, B), dtype=np.int64)
+                      for q in moduli])
+        x[:, :4, :] = np.array(moduli)[:, None, None]
+        rows.append(x)
+    pk = [np.stack([rng.integers(0, q, n, dtype=np.int64) for q in moduli])
+          for _ in range(2)]
+    return rows, pk
+
+
+def _asym_args(rows, pk, n, moduli):
+    """The KA wrapper's arguments from coefficient-major numpy inputs."""
+    op, quot, q = _tables(n, moduli)
+    lbn = [torch.as_tensor(x).transpose(1, 2).contiguous() for x in rows]
+    pairs = []
+    for p in pk:
+        p = torch.as_tensor(p)
+        pairs += [p, tma.shoup_quotient(p, q[:, None])]
+    return (*lbn, op, quot, q, *pairs)
+
+
+def test_ntt_asym_plain_vs_pallas_interpret():
+    """c0 = pk0 * ntt(u) + ntt(pte), c1 = pk1 * ntt(u) + ntt(e1) at L=2,
+    n=256, B=128, against the JAX fused-asym kernel in interpret mode."""
+    moduli = tuple(int(q) for q in PRIMES_27BIT[:2])
+    L, n, B = 2, 256, 128
+    rows, pk = _asym_case(moduli, L, n, B, 5)
+    u32 = [jnp.asarray(a.astype(np.uint32)) for a in rows + pk]
+    wc0, wc1 = ntt_coeff_major_fused_asym(*u32, moduli, interpret=True)
+
+    args = _asym_args(rows, pk, n, moduli)
+    plain = tntt.ntt_asym_plain(*args)
+    wrapped = ntt_asym(*args)
+    for name, want, p, w in zip(("c0", "c1"), (wc0, wc1), plain, wrapped):
+        assert torch.equal(p, w), name
+        assert np.array_equal(p.transpose(1, 2).numpy(),
+                              np.asarray(want).astype(np.int64)), name
+
+
+def test_asym_epilogue_matches_barrett():
+    """The Shoup combine equals add_mod(mul_mod(pk, nu), other) (the JAX
+    package's unfused asym epilogue) on values up to q - 1."""
+    moduli = default_parms(4096, 3).moduli
+    L, B, n = 3, 2, 64
+    rng = np.random.default_rng(9)
+    q = torch.tensor(moduli, dtype=torch.int64)
+    qv = q[:, None, None]
+    nu, other = (torch.as_tensor(np.stack([rng.integers(0, m, (B, n))
+                                           for m in moduli])) for _ in range(2))
+    nu[:, :, 0] = qv[:, :, 0] - 1
+    pk = torch.as_tensor(np.stack([rng.integers(0, m, n) for m in moduli]))
+    got = tntt.asym_epilogue(nu, other, pk, tma.shoup_quotient(pk, q[:, None]),
+                             q)
+    mods = tma.modpack(moduli)
+    mb = tma.Mod(*(f[:, None, None] for f in mods))
+    want = tma.add_mod(tma.mul_mod(pk[:, None, :], nu, mb), other, mb)
+    assert torch.equal(got, want)
+
+
+def test_ntt_asym_wrapper_checks():
+    moduli = tuple(int(q) for q in PRIMES_27BIT[:2])
+    rows, pk = _asym_case(moduli, 2, 64, 2, 1)
+    args = list(_asym_args(rows, pk, 64, moduli))
+    with pytest.raises(ValueError):
+        ntt_asym(args[0].to(torch.int32), *args[1:])
+    with pytest.raises(ValueError):
+        ntt_asym(args[0], args[1][:, :1], *args[2:])
+    with pytest.raises(ValueError):
+        ntt_asym(*args[:6], args[6][:, :32], *args[7:])
+    with pytest.raises(ValueError):
+        ntt_asym(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                 *args[1:])

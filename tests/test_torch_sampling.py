@@ -109,3 +109,63 @@ def test_queue_caps_equal_jax():
         for chain in (PRIMES_27BIT[:1], PRIMES_30BIT[:3], PRIMES_30BIT):
             assert tsp.queue_cap_for(n, chain) == jsp.queue_cap_for(n, chain)
     assert tsp.queue_cap_for(4096, PRIMES_30BIT[:3]) == 160
+
+
+def _ternary_state(n_streams, seed):
+    """Seeds and counters for the ternary sampler, with a counter whose
+    queue offsets carry into hi (2^32 - 3) and one that wraps at 2^64."""
+    rng = np.random.default_rng(seed)
+    seeds = rng.integers(0, 2 ** 32, (n_streams, 16), dtype=np.int64)
+    ctr = rng.integers(0, 2 ** 32, (n_streams, 2), dtype=np.int64)
+    ctr[0] = [2 ** 32 - 3, 7]
+    ctr[1] = [2 ** 32 - 2, 2 ** 32 - 1]
+    return seeds, ctr
+
+
+@pytest.mark.parametrize("n", [384, 1024])
+def test_sample_ternary_vs_jax(n):
+    """n = 384: four full blocks; n = 1024: ten blocks and a tail of 64."""
+    seeds, ctr = _ternary_state(3, n)
+    wvals, wnext, wok = jax.jit(
+        lambda s, c: jsp.sample_ternary(s, c, n))(_j(seeds), _j(ctr))
+    vals, nxt, ok = tsp.sample_ternary(torch.as_tensor(seeds),
+                                       torch.as_tensor(ctr), n)
+    assert vals.shape == (3, n)
+    assert np.array_equal(vals.numpy(), _np(wvals))
+    assert np.array_equal(nxt.numpy(), _np(wnext))
+    assert np.array_equal(ok.numpy(), np.asarray(wok))
+    assert ok.all() and set(np.unique(vals.numpy())) == {-1, 0, 1}
+    # Every block consumed at least its own draw, and row 1 wrapped.
+    blocks = -(-n // 96)
+    assert nxt[1, 1] == 0 and nxt[1, 0] >= blocks - 2
+
+
+@pytest.mark.parametrize("count_here", [96, 64, 32])
+def test_ternary_block_vs_jax(count_here):
+    """One block, with rejected bytes past count_here in some row, which
+    a tail block must leave unreplaced and unconsumed."""
+    seeds, ctr = _ternary_state(16, count_here)
+    by = tsp._words_to_bytes(tsp._squeeze(torch.as_tensor(seeds),
+                                          torch.as_tensor(ctr), 1, nwords=24))
+    assert bool((by[:, 32:] >= 0xFE).any())
+    wvals, wnext, wok = jsp._ternary_block(_j(seeds), _j(ctr), count_here)
+    vals, nxt, ok = tsp._ternary_block(torch.as_tensor(seeds),
+                                       torch.as_tensor(ctr), count_here)
+    assert np.array_equal(vals.numpy(), _np(wvals))
+    assert np.array_equal(nxt.numpy(), _np(wnext))
+    assert np.array_equal(ok.numpy(), np.asarray(wok))
+
+
+def test_ternary_to_modq_vs_jax():
+    rng = np.random.default_rng(3)
+    signed = rng.integers(-1, 2, (2, 64))
+    q = int(PRIMES_30BIT[0])
+    want = _np(jsp.ternary_to_modq(jnp.asarray(signed.astype(np.int32)), q))
+    assert np.array_equal(tsp.ternary_to_modq(torch.as_tensor(signed), q)
+                          .numpy(), want)
+    qs = np.array(PRIMES_30BIT[:3], dtype=np.int64)[:, None, None]
+    want = _np(jsp.ternary_to_modq_any(jnp.asarray(signed.astype(np.int32)),
+                                       jnp.asarray(qs.astype(np.uint32))))
+    got = tsp.ternary_to_modq_any(torch.as_tensor(signed)[None],
+                                  torch.as_tensor(qs))
+    assert got.shape == (3, 2, 64) and np.array_equal(got.numpy(), want)
