@@ -3,22 +3,32 @@
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-The main path has two parts, each with bit-exact encode at n = 4096,
-L = 3, B = 1024: symmetric CKKS encode + encrypt (``SymEncryptor``, the
-port of ``ckks/fast.py:sym_encrypt_fused``), and public-key generation
-plus asymmetric encode + encrypt (``gen_pk_batch`` and
-``AsymEncryptor``, the port of ``ckks/asym.py``).  Phases, one line each:
+The paths it drives, each with bit-exact encode at n = 4096, L = 3,
+B = 1024: symmetric CKKS encode + encrypt (``SymEncryptor``, the port of
+``ckks/fast.py:sym_encrypt_fused``); public-key generation plus
+asymmetric encode + encrypt (``gen_pk_batch`` and ``AsymEncryptor``, the
+port of ``ckks/asym.py``); the limb-scan encryptor in its reference,
+parallel and reverse-order forms (``ckks/limbwise.py``) and the per-prime
+``sym_encrypt_batch`` (``ckks/sym.py``), with ``expand_c1`` and
+``decrypt_batch`` as their checks; and the op-mix calibration that gives
+every kernel its measured ceiling.  Phases, one line each:
 
 1. device: the card, its power limit, nvcc's version;
 2. build: the kernels from ``seal_embedded_tpu_torch/csrc/`` (sm_90a);
 3. each kernel (KK Keccak, KN NTT, KA asym NTT, KE encode) against its
    plain torch version at the main path's shapes, bit for bit, and timed
    beside it;
+3b. calibrate: KC (both op mixes) against its plain version, bit for
+   bit, and timed beside it; the measured keccak and ntt ceilings at a
+   full-card tile count; each KK, KN and KA row's sol_frac_calibrated;
 4. the port on the card against all seven sym and all three asym
-   C-reference golden files (pk generation included);
-5. the sym and the asym headline batches with rows 0..5 set to golden
-   vectors: verified, timed with CUDA events, peak memory;
-6. the launch counters of each headline run.
+   C-reference golden files (pk generation included), the sym goldens
+   also through the limb-scan encryptor, sym_encrypt_batch and expand_c1;
+5. the headline batches (sym, asym, limb-scan reference, parallel and
+   reverse, sym_encrypt_batch), rows 0..5 golden where the layout is the
+   reference's, the others checked by expand_c1 and decrypt_batch: timed
+   with CUDA events, peak memory;
+6. the launch counters of each headline run and of the calibration.
 
 Imports no jax and nothing of the JAX package.  Any failure raises and
 exits non-zero; there is no CPU fallback.  The last line is one JSON
@@ -37,16 +47,22 @@ import torch
 
 from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor, gen_pk_batch
 from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
-from seal_embedded_tpu_torch.config import default_parms
+from seal_embedded_tpu_torch.ckks.limbwise import (LimbscanEncryptor,
+                                                  expand_c1,
+                                                  make_limbscan_encryptor)
+from seal_embedded_tpu_torch.ckks.sym import decrypt_batch, sym_encrypt_batch
+from seal_embedded_tpu_torch.config import Parms, default_parms
 from seal_embedded_tpu_torch.convert import (asym_state_to_device,
                                              pk_to_device, state_to_device,
                                              unpack_sk)
+from seal_embedded_tpu_torch.ops import calibrate as cal
 from seal_embedded_tpu_torch.ops import encode as enc
 from seal_embedded_tpu_torch.ops import keccak as kc
 from seal_embedded_tpu_torch.ops import modarith as ma
 from seal_embedded_tpu_torch.ops import ntt as ntt_ops
 from seal_embedded_tpu_torch.ops import sampling as sp
 from seal_embedded_tpu_torch.ops.kernels import build
+from seal_embedded_tpu_torch.ops.kernels import calibrate as k_calib
 from seal_embedded_tpu_torch.ops.kernels import encode as k_encode
 from seal_embedded_tpu_torch.ops.kernels import keccak as k_keccak
 from seal_embedded_tpu_torch.ops.kernels import ntt as k_ntt
@@ -67,11 +83,22 @@ K3 = TPU + "ntt.py:241 _pallas_ntt_call"
 K4 = TPU + "ntt.py:269 _pallas_ntt_fused_sym_call"
 K5 = TPU + "encode2.py:584 _encode_call"
 K6 = TPU + "ntt.py:342 ntt_coeff_major_fused_asym"
+K7 = TPU + "calibrate.py:94 _calib_call"
+
+# KC: the bit-for-bit check and the kernel-vs-plain timing run short
+# loops that the plain version can take; the ceilings run long ones.  A
+# full card is 2 blocks of 1024 threads on every SM; the ceiling tries 2,
+# 4 and 6 blocks per SM with the same work per call (2 x 1024 x 32768
+# lane-iterations per SM), 10 to 50 ms per call.
+CALIB_CHECK_ITERS = 64
+CALIB_MID_ITERS = 512
+CALIB_BLOCKS_PER_SM = (2, 4, 6)
+CALIB_LANE_ITERS_PER_SM = 2 * 1024 * 32768
 
 # Launch counters of the kernel wrappers: name -> (module, attribute).
 COUNTERS = {"keccak": (k_keccak, "launches"), "ntt": (k_ntt, "launches"),
             "ntt_asym": (k_ntt, "asym_launches"),
-            "encode": (k_encode, "launches")}
+            "encode": (k_encode, "launches"), "calib": (k_calib, "launches")}
 
 
 def reset_counts():
@@ -142,11 +169,14 @@ def phase_kernels(dev):
     rng = np.random.default_rng(1)
     rows = []
 
-    def row(name, source, replaces, counter, err, ms, plain_ms, shape):
+    def row(name, source, replaces, counter, err, ms, plain_ms, shape,
+            work):
+        """work: ("keccak", permutations) or ("ntt", butterflies), what
+        phase 3b reckons the row's sol_frac_calibrated from."""
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "counter": counter,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "shape": shape})
+                     "shape": shape, "work": work})
 
     # KK: the uniform base draw (121 blocks), the queue (nwords=1, 160 per
     # stream: the chain-aware queue_cap_for) and the CBD fills (nwords=24,
@@ -176,13 +206,16 @@ def phase_kernels(dev):
         ms, pms = timed_pair(lambda: k_keccak.keccak_squeeze(s, c, nb, nw),
                              lambda: kc.shake256_words(s, c, nb, nw))
         row(f"keccak_squeeze {role}", kk, replaces, "keccak", err, ms, pms,
-            f"{s.shape[0]} streams x {nb} blocks, nwords={nw}")
+            f"{s.shape[0]} streams x {nb} blocks, nwords={nw}",
+            ("keccak", s.shape[0] * nb))
 
-    # KN at the main path's shapes: the fused c0 NTT (3, 1024, 4096) with
-    # inputs that include q, and ntt(s) (3, 1, 4096); then one n = 16384 row.
+    # KN at the main paths' shapes: the fused c0 NTT (3, 1024, 4096) with
+    # inputs that include q, ntt(s) (3, 1, 4096) and sym_encrypt_batch's
+    # unfused ntt(pte) (3, 1024, 4096); then the n = 16384 rows.
     kn = "seal_embedded_tpu_torch/csrc/ntt.cu"
     for n, lim, batch, fused, replaces in ((N, L, B, True, K4),
                                            (N, L, 1, False, K3),
+                                           (N, L, B, False, K3),
                                            (16384, 3, 1, False, K3),
                                            (16384, 3, 1, True, K4)):
         moduli = default_parms(n, lim).moduli
@@ -203,7 +236,8 @@ def phase_kernels(dev):
         if fused:
             want = ntt_ops.sym_epilogue(want, extra["a"], extra["s_op"],
                                         extra["s_quot"], q)
-        tag = "fused c0" if fused else "ntt"
+        tag = ("fused c0" if fused
+               else "ntt" if batch == 1 else f"ntt B={batch}")
         err = require_equal(f"KN {tag} n={n} B={batch}", got, want)
         if n == N:
             ms, pms = timed_pair(
@@ -213,7 +247,8 @@ def phase_kernels(dev):
                     extra["s_op"], extra["s_quot"], q) if fused
                     else ntt_ops.ntt_limbs(x, op, quot, q)))
             row(f"ntt_fwd {tag}", kn, replaces, "ntt", err, ms, pms,
-                f"(L, B, n) = ({lim}, {batch}, {n})")
+                f"(L, B, n) = ({lim}, {batch}, {n})",
+                ("ntt", k_calib.ntt_butterflies(lim, batch, n)))
         else:
             print(f"[3 kernels] KN {tag} n={n} B={batch}: bit-equal")
 
@@ -243,7 +278,8 @@ def phase_kernels(dev):
             ms, pms = timed_pair(lambda: k_ntt.ntt_asym(*args),
                                  lambda: ntt_ops.ntt_asym_plain(*args))
             row("ntt_asym", kn, K6, "ntt_asym", err, ms, pms,
-                f"(L, B, n) = ({lim}, {batch}, {n}), golden pk")
+                f"(L, B, n) = ({lim}, {batch}, {n}), golden pk",
+                ("ntt", k_calib.ntt_butterflies(lim, batch, n, 3)))
         else:
             print(f"[3 kernels] KA n={n} L={lim} B={batch}: bit-equal")
 
@@ -275,11 +311,76 @@ def phase_kernels(dev):
         lambda: enc.encode_tables(v, imap, tw_re, tw_im, sn))
     row("encode_f64", "seal_embedded_tpu_torch/csrc/encode.cu", K5, "encode",
         err, ms, pms, f"(B, vlen) = ({B}, {N // 2}), n = {N}; "
-        f"{int((~want_ok).sum())} overflow rows")
+        f"{int((~want_ok).sum())} overflow rows", None)
     for r in rows:
         print(f"[3 kernels] {r['name']} {r['shape']}: bit-equal; "
               f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms")
     return rows
+
+
+def phase_calibrate(dev, smi, rows):
+    """KC against its plain version, then the ceilings, then each KK, KN
+    and KA row's sol_frac_calibrated.  Returns (KC's rows, the launch
+    counts of the ceiling run)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = 2 * sms
+    kc_src = "seal_embedded_tpu_torch/csrc/calibrate.cu"
+    kc_rows = []
+    for mix in cal.MIXES:
+        err = 0
+        for nchain in (8, 16):
+            x = k_calib.mix_input(nchain, tiles, dev)
+            err = max(err, require_equal(
+                f"KC {mix} nchain={nchain}",
+                k_calib.calib_mix(x, mix, CALIB_CHECK_ITERS),
+                cal.mix_plain(x, mix, CALIB_CHECK_ITERS)))
+        x = k_calib.mix_input(8, tiles, dev)
+        ms, pms = timed_pair(
+            lambda: k_calib.calib_mix(x, mix, CALIB_MID_ITERS),
+            lambda: cal.mix_plain(x, mix, CALIB_MID_ITERS))
+        kc_rows.append({"name": f"calib_mix {mix}", "route": "cuda",
+                        "source": kc_src, "replaces": K7, "counter": "calib",
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        "shape": f"{tiles} tiles x 8 chains x 1024 lanes, "
+                                 f"{CALIB_MID_ITERS} iters"})
+        print(f"[3b calibrate] KC {mix}: bit-equal at nchain 8 and 16, "
+              f"{tiles} tiles, {CALIB_CHECK_ITERS} iters; at "
+              f"{CALIB_MID_ITERS} iters {ms:.4f} ms vs plain {pms:.4f} ms")
+
+    # The ceilings: the highest rate over the tile counts, each call
+    # doing the same work.
+    torch.cuda.synchronize()
+    reset_counts()
+    best = {}
+    for per_sm in CALIB_BLOCKS_PER_SM:
+        t = per_sm * sms
+        iters = CALIB_LANE_ITERS_PER_SM // (per_sm * k_calib.LANES)
+        iters -= iters % k_calib.UNROLL
+        for mix, rate in k_calib.measure_ceilings(dev, iters, t).items():
+            ms = iters * cal.ops_per_iter(mix) * t * k_calib.LANES / rate * 1e3
+            print(f"[3b calibrate] {mix} mix: {rate / 1e9:.1f} Gop/s, "
+                  f"{iters} iters x {t} tiles, {ms:.3f} ms per call")
+            if rate > best.get(mix, (0,))[0]:
+                best[mix] = (rate, iters, t, ms)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for mix, (rate, iters, t, ms) in best.items():
+        print(f"[3b calibrate] ceiling {mix}: {rate / 1e9:.1f} Gop/s "
+              f"(source-convention u32 ops; {iters} iters, {t} tiles, "
+              f"{ms:.3f} ms per call); {smi}")
+
+    ceiling = {mix: v[0] for mix, v in best.items()}
+    for r in rows:
+        if r["work"] is None:
+            continue
+        kind, units = r["work"]
+        share = (k_calib.keccak_share if kind == "keccak"
+                 else k_calib.ntt_share)(units, r["ms"], ceiling[kind])
+        unit = "Gperm/s" if kind == "keccak" else "Gbfly/s"
+        print(f"[3b calibrate] {r['name']} ({r['shape']}): "
+              f"{units / r['ms'] * 1e-6:.4f} {unit} through the wrapper, "
+              f"sol_frac_calibrated {share:.4f}")
+    return kc_rows, counts
 
 
 def load_golden(kind, n, nprimes):
@@ -335,15 +436,30 @@ def check_pk(pk, gold, name):
                                  "golden file")
 
 
+def check_c1(c1, ok, want, name):
+    if not torch.equal(c1, want):
+        raise AssertionError(f"{name}: expand_c1 differs from the encryptor")
+    if not bool(ok.all()):
+        raise AssertionError(f"{name}: expand_c1's ok is False")
+
+
 def phase_golden(dev):
     for n, nprimes in GOLDEN_CONFIGS:
+        name = f"golden_sym_{n}_{nprimes}"
         gold = load_golden("sym", n, nprimes)
+        parms = default_parms(n, nprimes)
         G = gold["v"].shape[0]
         args = state_to_device(gold["v"], gold["sk"], *golden_seeds(G), dev)
-        out = SymEncryptor(default_parms(n, nprimes), dev)(*args)
-        check_golden_rows(out, gold, f"golden_sym_{n}_{nprimes}")
-        print(f"[4 golden] golden_sym_{n}_{nprimes}.npz: {G} x {nprimes} "
-              f"c0/c1/pt/pte bit-exact on {dev}")
+        check_golden_rows(SymEncryptor(parms, dev)(*args), gold, name)
+        out = make_limbscan_encryptor(parms, "reference", "sf",
+                                      device=dev)(*args)
+        check_golden_rows(out, gold, f"{name} limb-scan")
+        check_c1(*expand_c1(args[2], parms), out["c1"], f"{name} expand_c1")
+        check_golden_rows(sym_encrypt_batch(*args, parms, "table"), gold,
+                          f"{name} sym_encrypt_batch")
+        print(f"[4 golden] {name}.npz: {G} x {nprimes} c0/c1/pt/pte "
+              f"bit-exact on {dev} through SymEncryptor, the limb-scan "
+              f"encryptor and sym_encrypt_batch; expand_c1's c1 too")
     for n, nprimes in ASYM_GOLDEN_CONFIGS:
         name = f"golden_asym_{n}_{nprimes}"
         gold = load_golden("asym", n, nprimes)
@@ -371,13 +487,27 @@ def headline_inputs(gold):
     return values, share, err
 
 
-def report_headline(tag, gold, ms, peak, smi, extra=""):
+def golden_verified(gold):
     G = gold["v"].shape[0]
-    print(f"[5 headline] {tag} n={N} L={L} B={B}: rows 0..{G - 1} "
-          f"golden-bitexact ({G}x{L}), ok for all {B}; "
+    return f"rows 0..{G - 1} golden-bitexact ({G}x{L}), ok for all {B}"
+
+
+def report_headline(tag, verified, ms, peak, smi, extra=""):
+    print(f"[5 headline] {tag} n={N} L={L} B={B}: {verified}; "
           f"{B / ms * 1e3:.1f} enc/s, {ms:.3f} ms/batch (median of "
           f"{TIME_ITERS}), peak {peak / 2 ** 20:.1f} MiB{extra}; "
           f"{smi}")
+
+
+def counted_run(fn):
+    """fn() once with every launch counter at 0 and the peak memory
+    reset: (its output, the counts, the peak)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), torch.cuda.max_memory_allocated()
 
 
 def phase_headline_sym(dev, smi):
@@ -386,17 +516,10 @@ def phase_headline_sym(dev, smi):
     args = state_to_device(values, gold["sk"], share, err, dev)
     encryptor = SymEncryptor(default_parms(N, L), dev)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    out = encryptor(*args)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    out, counts, peak = counted_run(lambda: encryptor(*args))
     check_golden_rows(out, gold, "sym headline batch")
-
     ms = cuda_time_ms(lambda: encryptor(*args), TIME_ITERS)
-    report_headline("sym", gold, ms, peak, smi)
+    report_headline("sym", golden_verified(gold), ms, peak, smi)
     return counts
 
 
@@ -407,23 +530,82 @@ def phase_headline_asym(dev, smi):
     values, _, seeds = headline_inputs(gold)
     args = asym_state_to_device(values, seeds, dev)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    pk = golden_pk(gold, parms, dev)
-    encryptor = AsymEncryptor(parms, *pk, dev)
-    out = encryptor(*args)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    def keygen_and_encrypt():
+        pk = golden_pk(gold, parms, dev)
+        encryptor = AsymEncryptor(parms, *pk, dev)
+        return pk, encryptor, encryptor(*args)
+
+    (pk, encryptor, out), counts, peak = counted_run(keygen_and_encrypt)
     check_pk(pk, gold, "asym headline")
     check_golden_rows(out, gold, "asym headline batch")
 
     ms = cuda_time_ms(lambda: encryptor(*args), TIME_ITERS)
     pk_ms = cuda_time_ms(lambda: golden_pk(gold, parms, dev), 3, 1)
-    report_headline("asym", gold, ms, peak, smi,
+    report_headline("asym", golden_verified(gold), ms, peak, smi,
                     f"; gen_pk {pk_ms:.3f} ms (median of 3)")
     return counts
+
+
+def check_decrypts(out, sk, parms, name):
+    """decrypt_batch gives pte back from every limb, canonical and lazy."""
+    for impl in ("canonical", "lazy"):
+        cen = decrypt_batch(out["c0"], out["c1"], sk, parms, impl)
+        if not all(torch.equal(c, out["pte"]) for c in cen):
+            raise AssertionError(f"{name}: {impl} decrypt does not give "
+                                 "pte back")
+
+
+def phase_headline_limbscan(dev, smi):
+    """The limb-scan encryptor (reference, parallel and reverse order) and
+    sym_encrypt_batch on the sym headline's inputs.  Returns the launch
+    counts of each path's run."""
+    parms = default_parms(N, L)
+    rev_parms = Parms(parms.degree, parms.moduli[::-1], parms.scale)
+    gold = load_golden("sym", N, L)
+    values, share, err = headline_inputs(gold)
+    args = state_to_device(values, gold["sk"], share, err, dev)
+    golden = golden_verified(gold)
+    runs = {}
+
+    def check_reference(out, name):
+        check_golden_rows(out, gold, name)
+
+    def check_parallel(out, name):
+        if not bool(out["ok"].all()):
+            raise AssertionError(f"{name}: ok is False")
+        check_c1(*expand_c1(args[2], parms, "parallel"), out["c1"], name)
+        check_decrypts(out, args[1], parms, name)
+
+    def check_reverse(out, name):
+        G = gold["v"].shape[0]
+        if not (bool(out["ok"].all()) and np.array_equal(
+                out["pte"][:G].cpu().numpy(), gold["pte"])):
+            raise AssertionError(f"{name}: ok or pte rows wrong")
+        check_decrypts(out, args[1], rev_parms, name)
+
+    paths = (
+        ("limb-scan reference",
+         make_limbscan_encryptor(parms, "reference", "sf", device=dev),
+         check_reference, golden),
+        ("limb-scan parallel",
+         make_limbscan_encryptor(parms, "parallel", "sf", device=dev),
+         check_parallel, f"c1 = expand_c1(parallel), decrypt_batch gives "
+                         f"pte back (canonical, lazy), ok for all {B}"),
+        ("sym_encrypt_batch table",
+         lambda *a: sym_encrypt_batch(*a, parms, "table"),
+         check_reference, golden),
+        ("limb-scan reverse",
+         LimbscanEncryptor(parms, "reference", "reverse", dev),
+         check_reverse, f"pte rows 0..5 golden, decrypt_batch under the "
+                        f"reversed chain gives pte back (canonical, lazy), "
+                        f"ok for all {B}"))
+    for tag, fn, check, verified in paths:
+        out, runs[tag], peak = counted_run(lambda: fn(*args))
+        check(out, f"{tag} headline batch")
+        del out   # else it would count in the next path's peak
+        ms = cuda_time_ms(lambda: fn(*args), TIME_ITERS)
+        report_headline(tag, verified, ms, peak, smi)
+    return runs
 
 
 def main():
@@ -431,16 +613,22 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     rows = phase_kernels(dev)
+    kc_rows, calib_counts = phase_calibrate(dev, smi, rows)
+    rows += kc_rows
     phase_golden(dev)
-    runs = {"sym": (phase_headline_sym(dev, smi), ("keccak", "ntt", "encode")),
-            "asym": (phase_headline_asym(dev, smi),
-                     ("keccak", "ntt", "ntt_asym", "encode"))}
+    sym_path = ("keccak", "ntt", "encode")
+    runs = {"sym headline": (phase_headline_sym(dev, smi), sym_path),
+            "asym headline": (phase_headline_asym(dev, smi),
+                              ("keccak", "ntt", "ntt_asym", "encode"))}
+    for tag, counts in phase_headline_limbscan(dev, smi).items():
+        runs[f"{tag} headline"] = (counts, sym_path)
+    runs["calibration"] = (calib_counts, ("calib",))
     for path, (counts, needed) in runs.items():
         missing = [k for k in needed if counts[k] < 1]
         if missing:
             raise AssertionError(f"kernels not launched by the {path} "
-                                 f"headline run: {missing}")
-        print(f"[6 launches] {path} headline run: {counts}")
+                                 f"run: {missing}")
+        print(f"[6 launches] {path} run: {counts}")
     for r in rows:
         print(f"[5 headline] kernel {r['name']} ({r['shape']}): "
               f"{r['ms']:.4f} ms, plain torch {r['plain_ms']:.4f} ms")

@@ -87,16 +87,9 @@ def gen_pk_batch(sk_signed, pk_seed_words, ep, parms: Parms):
     n = parms.degree
     dev = sk_signed.device
     moduli = tuple(int(q) for q in parms.moduli)
-    seeds = pk_seed_words.reshape(1, 16)
-    qcap = sp.queue_cap_for(n, moduli)
-
-    counter = sp.counter_zero((1,), dev)
-    a = []
-    for q in moduli:
-        a_l, counter, _ = sp.sample_uniform(seeds, counter, n, q,
-                                            queue_cap=qcap)
-        a.append(a_l[0])
-    pk1 = torch.stack(a)
+    a, _ = sp.sample_uniform_limbs(pk_seed_words.reshape(1, 16), moduli, n,
+                                   sp.queue_cap_for(n, moduli))
+    pk1 = a[:, 0]
 
     # ntt(s) and ntt(ep) as the two rows of one KN launch: (L, 2, n).
     op, quot = (torch.as_tensor(t.astype(np.int64), device=dev)

@@ -88,29 +88,30 @@ class SymEncryptor(EncryptorBase):
                        self.q)[:, 0, :]
 
     def forward(self, values, sk_signed, share_words, err_words):
-        B = values.shape[0]
-        n = self.parms.degree
-        dev = values.device
-
         # --- encode + error (ckks_encode_base + ckks_sym_init) ---
         pt, ok = self.encode(values)
-        e, _ = sp.sample_cbd(err_words, sp.counter_zero((B,), dev), n)
-        pte = pt + e
+        e, _ = sp.sample_cbd(err_words, sp.counter_zero(
+            (values.shape[0],), values.device), self.parms.degree)
+        out = self.encrypt_pte(pt + e, sk_signed, share_words, ok)
+        out["pt"] = pt
+        return out
+
+    def draw_c1(self, share_words):
+        """Uniform a per prime; the counter chains from limb to limb."""
+        return sp.sample_uniform_limbs(share_words, self.moduli,
+                                       self.parms.degree, self.queue_cap)
+
+    def encrypt_pte(self, pte, sk_signed, share_words, ok=None):
+        """c0, c1 from the encoded pt + e (int64 (B, n)): a dict with c0,
+        c1 (L, B, n), pte and ok (B,), the given ok (all True when None)
+        and-ed with the sampler's."""
         pte_red = ma.reduce_pte_i64(pte[None], self.limb_mod())  # (L, B, n)
-
-        # --- uniform a per prime; the counter chains from limb to limb ---
-        counter = sp.counter_zero((B,), dev)
-        a = []
-        for q in self.moduli:
-            a_l, counter, ok_u = sp.sample_uniform(
-                share_words, counter, n, q, queue_cap=self.queue_cap)
-            a.append(a_l)
-            ok = ok & ok_u
-        a = torch.stack(a)
-
+        a, ok_u = self.draw_c1(share_words)
+        if ok is not None:
+            ok_u = ok & ok_u
         c0 = _combine_c0(pte_red, a, self.ntt_secret(sk_signed),
                          self.ntt_op, self.ntt_quot, self.q)
-        return {"c0": c0, "c1": a, "pte": pte, "pt": pt, "ok": ok}
+        return {"c0": c0, "c1": a, "pte": pte, "ok": ok_u}
 
 
 def _combine_c0(pte_red, a, ntt_s, op, quot, q):

@@ -134,18 +134,33 @@ def encode_tables(values, imap, tw_re, tw_im, scale_n: float):
     return coeff.to(torch.int64), ok
 
 
-def table_tensors(n: int, device=None):
-    """(imap int32, tw_re f64, tw_im f64) tensors for degree n."""
-    tw_re, tw_im = ifft_tables_flat(n)
-    return (torch.as_tensor(index_map_np(n), device=device),
+def table_tensors(n: int, device=None, root_tables=None, imap=None):
+    """(imap int32, tw_re f64, tw_im f64) tensors for degree n.
+
+    root_tables: optional per-round IFFT tables ((re, im) per round, the
+    JAX package's format, e.g. loaded from an adapter roots file: the
+    SE_IFFT_LOAD_FULL path), flattened to KE's (n - 1,) layout; imap:
+    optional loaded index map (SE_INDEX_MAP_LOAD).  Both default to the
+    computed tables, which are bit-identical."""
+    if root_tables is None:
+        tw_re, tw_im = ifft_tables_flat(n)
+    else:
+        tw_re = np.concatenate([np.asarray(re, np.float64)
+                                for re, _ in root_tables])
+        tw_im = np.concatenate([np.asarray(im, np.float64)
+                                for _, im in root_tables])
+    imap = index_map_np(n) if imap is None else np.asarray(imap, np.int32)
+    return (torch.as_tensor(imap, device=device),
             torch.as_tensor(tw_re, device=device),
             torch.as_tensor(tw_im, device=device))
 
 
-def encode(values, parms: Parms):
+def encode(values, parms: Parms, root_tables=None, imap=None):
     """values f32 (B, <= n/2) -> (conj_vals_int int64 (B, n), ok (B,)),
-    the plain f64 path on whatever device `values` lies."""
-    return encode_tables(values, *table_tensors(parms.degree, values.device),
+    the plain f64 path on whatever device `values` lies; root_tables and
+    imap as table_tensors."""
+    return encode_tables(values, *table_tensors(parms.degree, values.device,
+                                                root_tables, imap),
                          scale_over_n(parms))
 
 
@@ -154,10 +169,13 @@ def check_encode_mode(mode: str) -> None:
         raise ValueError(f"unknown encode mode {mode!r}")
 
 
-def encode_any(values, parms: Parms, mode: str = "sf"):
+def encode_any(values, parms: Parms, mode: str = "sf", root_tables=None,
+               imap=None):
     """Encode through kernel KE's wrapper.  Every mode of the JAX package
-    ('sf', 'f64', 'dd') is the one bit-exact IEEE f64 encode here."""
+    ('sf', 'f64', 'dd') is the one bit-exact IEEE f64 encode here;
+    root_tables and imap as table_tensors."""
     from .kernels.encode import encode_f64
     check_encode_mode(mode)
-    return encode_f64(values, *table_tensors(parms.degree, values.device),
+    return encode_f64(values, *table_tensors(parms.degree, values.device,
+                                             root_tables, imap),
                       scale_over_n(parms))

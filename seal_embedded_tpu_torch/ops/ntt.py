@@ -1,5 +1,6 @@
 """Batched negacyclic NTT on torch tensors: the plain versions of kernels
-KN and KA (``ops/kernels/ntt.py``).
+KN and KA (``ops/kernels/ntt.py``), and the inverse, on-the-fly and
+pointwise transforms the JAX package keeps outside its kernels.
 
 Port of ``seal_embedded_tpu/ops/ntt.py`` (the reference's device/lib/
 ntt.c): each of the log2(n) rounds is one vectorized pairwise op over a
@@ -18,7 +19,9 @@ import numpy as np
 import torch
 
 from ..config import barrett_quotient, bitrev, find_ntt_root
-from .modarith import mul_mod_shoup_lazy
+from ..io.serialize import intt_root_table
+from .modarith import (MASK32, add_mod, mul_mod, mul_mod_shoup_lazy,
+                       shift_result, sub_mod)
 
 
 @lru_cache(maxsize=64)
@@ -124,3 +127,156 @@ def ntt(x, q: int):
                     torch.as_tensor(quot.astype(np.int64), device=dev)[None],
                     torch.tensor([int(q)], dtype=torch.int64, device=dev))
     return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------- inverse
+# The inverse transforms, the OTF forward NTT and the pointwise product are
+# jnp code outside any Pallas kernel in the JAX package, so they stay plain
+# torch here, on whatever device their input lies.
+
+@lru_cache(maxsize=64)
+def intt_tables(n: int, q: int) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse-root tables, same indexing as forward (intt.c:511-605
+    semantics)."""
+    logn = n.bit_length() - 1
+    winv = pow(find_ntt_root(n, q), q - 2, q)
+    op = np.zeros(n, dtype=np.uint32)
+    quot = np.zeros(n, dtype=np.uint32)
+    power = 1
+    for i in range(n):
+        idx = bitrev(i, logn)
+        op[idx] = power
+        quot[idx] = barrett_quotient(power, q) & MASK32
+        power = (power * winv) % q
+    return op, quot
+
+
+def _u32(table, like):
+    return torch.as_tensor(np.asarray(table, dtype=np.uint32).astype(np.int64),
+                           device=like.device)
+
+
+def intt(x, q: int):
+    """Inverse of ntt(): canonical [0, q) coefficients (intt.c semantics,
+    including the 1/n fold).  x: int64 (..., n) in [0, q)."""
+    n = x.shape[-1]
+    logn = n.bit_length() - 1
+    op_np, quot_np = intt_tables(n, q)
+    op, quot = _u32(op_np, x), _u32(quot_np, x)
+    batch = x.shape[:-1]
+    v = x
+    h, tt = n // 2, 1
+    for _ in range(logn):
+        v = v.reshape(batch + (h, 2, tt))
+        u, w = v[..., 0, :], v[..., 1, :]
+        s_op = op[h:2 * h].reshape(h, 1)
+        s_quot = quot[h:2 * h].reshape(h, 1)
+        add = shift_result(u + w, q)
+        diff = shift_result(u + q - w, q)
+        t = shift_result(mul_mod_shoup_lazy(diff, s_op, s_quot, q), q)
+        v = torch.stack([add, t], dim=-2)
+        h, tt = h // 2, tt * 2
+    v = v.reshape(batch + (n,))
+    ninv = pow(n, q - 2, q)
+    return shift_result(mul_mod_shoup_lazy(
+        v, ninv, barrett_quotient(ninv, q) & MASK32, q), q)
+
+
+@lru_cache(maxsize=64)
+def intt_lazy_consts(n: int, q: int) -> tuple[tuple, tuple]:
+    """((inv_n, quot), (last_inv_sn, quot)) MUMO scalars for the lazy
+    INTT's merged final round (intt.c:226-268): inv_n = n^-1 mod q,
+    last_inv_sn = s * inv_n where s is the final round's root."""
+    logn = n.bit_length() - 1
+    tbl = intt_root_table(n, logn, q, find_ntt_root(n, q))
+    inv_n = pow(n, q - 2, q)
+    last_inv_sn = int(tbl[n - 1]) * inv_n % q
+    return ((inv_n, barrett_quotient(inv_n, q) & MASK32),
+            (last_inv_sn, barrett_quotient(last_inv_sn, q) & MASK32))
+
+
+def intt_lazy_with_tables(x, op, quot, q: int):
+    """Lazy ("fast") INTT with MUMO tables in the reference's INTT file
+    order (intt_lazy_inpl, intt.c:72-129, and the [0, q) correction at
+    intt.c:490-496): values stay in [0, 2q) across rounds, the last round
+    is merged with the inv_n / last_inv_sn products, and one correction
+    lands canonical [0, q).
+
+    x: int64 (..., n) in [0, q); op, quot: int64 (n,), e.g. the columns of
+    intt_fast_root_table; round h reads rows [n - 2h + 1, n - h + 1).
+    Value-identical to intt().
+    """
+    n = x.shape[-1]
+    logn = n.bit_length() - 1
+    batch = x.shape[:-1]
+    two_q = 2 * q
+    v = x
+    h, tt = n // 2, 1
+    for _ in range(logn - 1):
+        v = v.reshape(batch + (h, 2, tt))
+        u, w = v[..., 0, :], v[..., 1, :]
+        s_op = op[n - 2 * h + 1:n - h + 1].reshape(h, 1)
+        s_quot = quot[n - 2 * h + 1:n - h + 1].reshape(h, 1)
+        val1 = (u + w) & MASK32
+        val1 = torch.where(val1 >= two_q, val1 - two_q, val1)
+        val2 = (u + two_q - w) & MASK32
+        t = mul_mod_shoup_lazy(val2, s_op, s_quot, q)
+        v = torch.stack([val1, t], dim=-2)
+        h, tt = h // 2, tt * 2
+    v = v.reshape(batch + (n,))
+    (inv_n, inv_n_q), (lsn, lsn_q) = intt_lazy_consts(n, q)
+    u, w = v[..., :n // 2], v[..., n // 2:]
+    val1 = (u + w) & MASK32
+    val1 = torch.where(val1 >= two_q, val1 - two_q, val1)
+    val2 = (u + two_q - w) & MASK32
+    v = torch.cat([mul_mod_shoup_lazy(val1, inv_n, inv_n_q, q),
+                   mul_mod_shoup_lazy(val2, lsn, lsn_q, q)], dim=-1)
+    return shift_result(v, q)
+
+
+@lru_cache(maxsize=64)
+def _gen_powers(n: int, q: int) -> tuple:
+    """The logn generator squarings w^(2^b) mod q plus the bitrev gather:
+    the only precomputed state of the OTF mode."""
+    logn = n.bit_length() - 1
+    w = find_ntt_root(n, q)
+    sq = tuple(pow(w, 1 << b, q) for b in range(logn))
+    brv = np.array([bitrev(i, logn) for i in range(n)], dtype=np.int64)
+    return sq, brv
+
+
+def ntt_roots_ingraph(n: int, q: int, device=None):
+    """The bitrev-indexed root vector built from the logn generator
+    squarings by log-depth doubling (SE_NTT_TYPE 0/1: ntt.c:144-149),
+    int64 (n,) on `device`."""
+    sq, brv = _gen_powers(n, q)
+    pows = torch.ones((1,), dtype=torch.int64, device=device)
+    for wb in sq:  # pows_{b+1} = [pows_b, pows_b * w^(2^b)]
+        pows = torch.cat([pows, mul_mod(pows, wb, q)])
+    return pows[torch.as_tensor(brv, device=device)]
+
+
+def ntt_otf(x, q: int):
+    """Forward negacyclic NTT with on-the-fly roots (SE_NTT_TYPE 0
+    analog): roots from ntt_roots_ingraph and the reference's non-lazy
+    butterflies (Barrett mul_mod, canonical add/sub per stage,
+    ntt.c:124-165).  Value-identical to ntt().  x: int64 (..., n) in
+    [0, q)."""
+    n = x.shape[-1]
+    logn = n.bit_length() - 1
+    op = ntt_roots_ingraph(n, q, x.device)
+    batch = x.shape[:-1]
+    v = x
+    h, tt = 1, n // 2
+    for _ in range(logn):
+        v = v.reshape(batch + (h, 2, tt))
+        u, w = v[..., 0, :], v[..., 1, :]
+        t = mul_mod(w, op[h:2 * h].reshape(h, 1), q)
+        v = torch.stack([add_mod(u, t, q), sub_mod(u, t, q)], dim=-2)
+        h, tt = h * 2, tt // 2
+    return v.reshape(batch + (n,))
+
+
+def pointwise_mul_mod(a, b, q):
+    """NTT-domain multiply = coefficient-wise mul mod q (ntt.h:66-85)."""
+    return mul_mod(a, b, q)

@@ -190,6 +190,30 @@ def sample_uniform(seed_words, counter, n: int, q,
     return barrett32(final, m), _c_add(counter, 1 + consumed), ok
 
 
+def sample_uniform_limbs(seed_words, moduli, n: int,
+                         queue_cap: int | None = None,
+                         counter_stride: int | None = None):
+    """One uniform polynomial per modulus, in the order of `moduli`.
+
+    With counter_stride None the stream's counter chains from limb to limb
+    (the reference, seal_embedded.c:145-213); otherwise limb i starts at
+    counter i * counter_stride (the "parallel" layout).  seed_words: int64
+    (B, 16).  Returns (a int64 (L, B, n), ok (B,))."""
+    B = seed_words.shape[0]
+    dev = seed_words.device
+    counter = counter_zero((B,), dev)
+    ok = torch.ones((B,), dtype=torch.bool, device=dev)
+    a = []
+    for i, q in enumerate(moduli):
+        if counter_stride is not None:
+            counter = _c_add(counter_zero((B,), dev), i * counter_stride)
+        a_l, counter, ok_u = sample_uniform(seed_words, counter, n, q,
+                                            queue_cap=queue_cap)
+        a.append(a_l)
+        ok = ok & ok_u
+    return torch.stack(a), ok
+
+
 def _ternary_block(seed_words, counter, count_here: int):
     """One 96-byte ternary block + its rejection queue (sample.c:223-241):
     bytes >= 0xFE are redrawn from one-byte refills at counters c+1, c+2,

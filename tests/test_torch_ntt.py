@@ -174,3 +174,52 @@ def test_ntt_asym_wrapper_checks():
     with pytest.raises(ValueError):
         ntt_asym(args[0].transpose(1, 2).contiguous().transpose(1, 2),
                  *args[1:])
+
+
+_jax_intt = jax.jit(jntt.intt, static_argnums=1)
+_jax_otf = jax.jit(jntt.ntt_otf, static_argnums=1)
+_jax_lazy = jax.jit(jntt.intt_lazy_with_tables, static_argnums=3)
+
+
+@pytest.mark.parametrize("n,q", [(64, PRIMES_27BIT[0]),
+                                 (1024, default_parms(4096, 3).moduli[1])])
+def test_inverse_and_otf_vs_jax(n, q):
+    """intt, the lazy INTT with the reference's fast-root file tables,
+    the OTF forward NTT and the round trip, against ops/ntt.py."""
+    from seal_embedded_tpu.config import find_ntt_root
+    from seal_embedded_tpu.io import serialize as jser
+    from seal_embedded_tpu_torch.io import serialize as tser
+
+    logn = n.bit_length() - 1
+    w = find_ntt_root(n, q)
+    pairs = tser.intt_fast_root_table(n, logn, q, w)
+    assert np.array_equal(pairs, jser.intt_fast_root_table(n, logn, q, w))
+    assert np.array_equal(tser.intt_root_table(n, logn, q, w),
+                          jser.intt_root_table(n, logn, q, w))
+    assert tntt.intt_lazy_consts(n, q) == jntt.intt_lazy_consts(n, q)
+    for a, b in zip(tntt.intt_tables(n, q), jntt.intt_tables(n, q)):
+        assert np.array_equal(a, b)
+
+    rng = np.random.default_rng(n + 1)
+    x = rng.integers(0, q, (3, n), dtype=np.int64)
+    x[0, :4] = q - 1
+    x[1, :4] = 0
+    jx = jnp.asarray(x.astype(np.uint32))
+    xt = torch.as_tensor(x)
+    want = np.asarray(_jax_intt(jx, q)).astype(np.int64)
+    assert np.array_equal(tntt.intt(xt, q).numpy(), want)
+
+    op = jnp.asarray(pairs[0::2])
+    quot = jnp.asarray(pairs[1::2])
+    got = tntt.intt_lazy_with_tables(
+        xt, torch.as_tensor(pairs[0::2].astype(np.int64)),
+        torch.as_tensor(pairs[1::2].astype(np.int64)), q).numpy()
+    assert np.array_equal(got, np.asarray(_jax_lazy(jx, op, quot, q)))
+    assert np.array_equal(got, want)
+
+    otf = tntt.ntt_otf(xt, q)
+    assert np.array_equal(otf.numpy(), np.asarray(_jax_otf(jx, q)))
+    assert torch.equal(otf, tntt.ntt(xt, q))
+    assert torch.equal(tntt.intt(tntt.ntt(xt, q), q), xt)
+    assert torch.equal(tntt.pointwise_mul_mod(otf, xt, q),
+                       tma.mul_mod(otf, xt, q))
