@@ -10,8 +10,10 @@ asymmetric encode + encrypt (``gen_pk_batch`` and ``AsymEncryptor``, the
 port of ``ckks/asym.py``); the limb-scan encryptor in its reference,
 parallel and reverse-order forms (``ckks/limbwise.py``) and the per-prime
 ``sym_encrypt_batch`` (``ckks/sym.py``), with ``expand_c1`` and
-``decrypt_batch`` as their checks; and the op-mix calibration that gives
-every kernel its measured ceiling.  Phases, one line each:
+``decrypt_batch`` as their checks; the public API (``api.py``) and the
+per-prime streams (``ckks/stream.py``) on the same inputs; and the op-mix
+calibration that gives every kernel its measured ceiling.  Phases, one
+line each:
 
 1. device: the card, its power limit, nvcc's version;
 2. build: the kernels from ``seal_embedded_tpu_torch/csrc/`` (sm_90a);
@@ -28,7 +30,19 @@ every kernel its measured ceiling.  Phases, one line each:
    reverse, sym_encrypt_batch), rows 0..5 golden where the layout is the
    reference's, the others checked by expand_c1 and decrypt_batch: timed
    with CUDA events, peak memory;
-6. the launch counters of each headline run and of the calibration.
+5b. api + stream, on the sym headline's inputs: ``se_setup_custom`` +
+   ``se_encrypt_seeded`` sym (golden rows, torch.equal to
+   ``SymEncryptor``, the sent bytes on 16 messages, the seed-only blobs
+   through ``expand_c1`` and ``decrypt_batch``, ``se_decrypt_decode``) and
+   asym from a pk directory written by ``io.serialize`` (golden rows);
+   ``sym_encrypt_stream`` forward and reverse and ``asym_encrypt_stream``
+   with every limb equal to the batch's after the stream was consumed,
+   timed beside the batch plus its fetch to host memory, host waits per
+   limb, peaks (a sym stream's may not exceed its batch's); the adapter's
+   CRT verify of two of the card's ciphertexts, whole and with one
+   coefficient of prime 2 flipped;
+6. the launch counters of each headline run, each 5b run and of the
+   calibration.
 
 Imports no jax and nothing of the JAX package.  Any failure raises and
 exits non-zero; there is no CPU fallback.  The last line is one JSON
@@ -40,11 +54,14 @@ from __future__ import annotations
 import json
 import pathlib
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from seal_embedded_tpu_torch import adapter, api
+from seal_embedded_tpu_torch.ckks import stream
 from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor, gen_pk_batch
 from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
 from seal_embedded_tpu_torch.ckks.limbwise import (LimbscanEncryptor,
@@ -55,6 +72,7 @@ from seal_embedded_tpu_torch.config import Parms, default_parms
 from seal_embedded_tpu_torch.convert import (asym_state_to_device,
                                              pk_to_device, state_to_device,
                                              unpack_sk)
+from seal_embedded_tpu_torch.io import network, serialize
 from seal_embedded_tpu_torch.ops import calibrate as cal
 from seal_embedded_tpu_torch.ops import encode as enc
 from seal_embedded_tpu_torch.ops import keccak as kc
@@ -608,6 +626,210 @@ def phase_headline_limbscan(dev, smi):
     return runs
 
 
+STREAM_ITERS = 5
+SEND_ROWS = 16
+
+
+def host_time_ms(fn, iters=STREAM_ITERS):
+    """Median host milliseconds of fn() after one warm-up call, each call
+    started on an idle card; fn ends with its results in host memory.
+    Returns (median ms, the last call's result)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def peak_run(fn):
+    """counted_run, with the peak given above the memory allocated when fn
+    starts (the inputs both compared paths share)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out, counts, peak = counted_run(fn)
+    return out, counts, peak - base
+
+
+def fetch_to_pinned(out):
+    """c0, c1 of a batch to pinned host memory as int32 (the stream's own
+    transfer), waited for: uint32 (L, B, n) numpy arrays."""
+    host = []
+    for key in ("c0", "c1"):
+        h = torch.empty(out[key].shape, dtype=torch.int32, pin_memory=True)
+        h.copy_(out[key].to(torch.int32), non_blocking=True)
+        host.append(h)
+    torch.cuda.synchronize()
+    return [h.numpy().view(np.uint32) for h in host]
+
+
+def check_limbs(limbs, c0, c1, walk, name):
+    """The streamed limbs, read after the stream was consumed, against
+    the batch's c0/c1 (L, B, n) stacked in walk order."""
+    if [l["prime_idx"] for l in limbs] != walk:
+        raise AssertionError(f"{name}: limbs in order "
+                             f"{[l['prime_idx'] for l in limbs]}, not {walk}")
+    for j, l in enumerate(limbs):
+        for key, want in (("c0", c0), ("c1", c1)):
+            if not np.array_equal(l[key], want[j].cpu().numpy()):
+                raise AssertionError(f"{name}: limb {j} (prime "
+                                     f"{l['prime_idx']}) {key} differs from "
+                                     "the batch")
+
+
+def phase_api_stream(dev, smi):
+    """Phase 5b: the public API and per-prime streaming at the headline's
+    shape and inputs.  Returns the launch counts of each run."""
+    parms = default_parms(N, L)
+    gold = load_golden("sym", N, L)
+    G = gold["v"].shape[0]
+    values, share, err = headline_inputs(gold)
+    share_seeds = [kc.words_to_bytes_np(w) for w in share]
+    err_seeds = [kc.words_to_bytes_np(w) for w in err]
+    if share_seeds[0] != seed_bytes(2) or err_seeds[0] != seed_bytes(3):
+        raise AssertionError("api: golden seeds do not round-trip")
+    args = state_to_device(values, gold["sk"], share, err, dev)
+    runs = {}
+    scratch = ROOT / "build"      # git-ignored; key files live here briefly
+    scratch.mkdir(exist_ok=True)
+
+    # API sym: golden rows, and SymEncryptor's bits on the same inputs.
+    ctx = api.se_setup_custom(N, L, 2 ** 25, api.SYM, sk=gold["sk"],
+                              device=dev)
+    out, runs["api sym"], _ = counted_run(
+        lambda: api.se_encrypt_seeded(ctx, values, share_seeds, err_seeds))
+    check_golden_rows(out, gold, "api sym")
+    ref = SymEncryptor(parms, dev)(*args)
+    for key in ("c0", "c1", "pte", "ok"):
+        if not torch.equal(out[key], ref[key]):
+            raise AssertionError(f"api sym: {key} differs from SymEncryptor")
+    dec = api.se_decrypt_decode(ctx, {k: out[k][:, :G] for k in ("c0", "c1")})
+    dec_err = float(np.abs(dec - gold["v"]).max())
+    if dec_err > 1e-3:
+        raise AssertionError(f"api sym: decode error {dec_err}")
+    del out, ref
+    print(f"[5b api] sym se_encrypt_seeded n={N} L={L} B={B}: "
+          f"{golden_verified(gold)}, c0/c1/pte/ok torch.equal to "
+          f"SymEncryptor; se_decrypt_decode rows 0..{G - 1} within "
+          f"{dec_err:.3g} of the values")
+
+    rows = slice(0, SEND_ROWS)
+    send, store = network.collecting_sender()
+    out = api.se_encrypt_seeded(ctx, values[rows], share_seeds[rows],
+                                err_seeds[rows], send=send)
+    c0, c1 = (out[k].cpu().numpy() for k in ("c0", "c1"))
+    want = [serialize.ct_component_bytes(c[i, b]) for b in range(SEND_ROWS)
+            for i in range(L) for c in (c0, c1)]
+    if store != want:
+        raise AssertionError("api sym send: bytes differ from "
+                             "ct_component_bytes of the output")
+    send, store = network.collecting_sender()
+    out = api.se_encrypt_seeded(ctx, values[rows], share_seeds[rows],
+                                err_seeds[rows], send=send,
+                                send_seed_only=True)
+    parsed = [serialize.seeded_ct_parse(blob) for blob in store]
+    if [s for s, _ in parsed] != share_seeds[rows]:
+        raise AssertionError("api seed-only: seeds differ")
+    c1, ok = expand_c1(api._seed_words_batch([s for s, _ in parsed], dev),
+                       parms)
+    if not (torch.equal(c1, out["c1"]) and bool(ok.all())):
+        raise AssertionError("api seed-only: expand_c1 differs from c1")
+    c0 = torch.as_tensor(np.stack([c for _, c in parsed], axis=1)
+                         .astype(np.int64), device=dev)
+    cen = decrypt_batch(c0, c1, ctx._sk, parms)
+    if not all(torch.equal(c, out["pte"]) for c in cen):
+        raise AssertionError("api seed-only: decrypt does not give pte back")
+    print(f"[5b api] send on {SEND_ROWS} messages: {len(want)} components "
+          f"equal to ct_component_bytes (c0 then c1, per prime, per "
+          f"message); send_seed_only: {SEND_ROWS} blobs, expand_c1 on {dev} "
+          f"gives c1, decrypt_batch gives pte back")
+    api.se_cleanup(ctx)
+
+    # API asym from a pk written by the port's serializer.
+    agold = load_golden("asym", N, L)
+    avalues, _, aseeds = headline_inputs(agold)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        serialize.write_pk(tmp, parms, list(zip(agold["pk0"], agold["pk1"])))
+        actx = api.se_setup_custom(N, L, 2 ** 25, api.ASYM, pk_dir=tmp,
+                                   device=dev)
+    out, runs["api asym"], _ = counted_run(lambda: api.se_encrypt_seeded(
+        actx, avalues, seeds=[kc.words_to_bytes_np(w) for w in aseeds]))
+    check_golden_rows(out, agold, "api asym")
+    del out
+    print(f"[5b api] asym se_setup_custom(pk_dir) + se_encrypt_seeded "
+          f"n={N} L={L} B={B}: {golden_verified(agold)}")
+
+    # Streams: every limb against the batch after the stream is consumed;
+    # streamed time beside batch + fetch, peaks above the shared inputs.
+    rev = LimbscanEncryptor(parms, "reference", "reverse", dev)
+    aargs = asym_state_to_device(avalues, aseeds, dev)
+    apk = pk_to_device(agold["pk0"], agold["pk1"], dev)
+    cases = (
+        ("sym forward", [0, 1, 2], lambda: stream.sym_encrypt_stream(
+            *args, parms, "f64", "forward"),
+         lambda: SymEncryptor(parms, dev)(*args)),
+        ("sym reverse", [2, 1, 0], lambda: stream.sym_encrypt_stream(
+            *args, parms, "f64", "reverse"), lambda: rev(*args)),
+        ("asym forward", [0, 1, 2], lambda: stream.asym_encrypt_stream(
+            aargs[0], *apk, aargs[1], parms, "f64", "forward"),
+         lambda: AsymEncryptor(parms, *apk, dev)(*aargs)))
+    for tag, walk, streamed, batch in cases:
+        limbs, runs[f"stream {tag}"], peak = peak_run(lambda: list(streamed()))
+        want, _, batch_peak = peak_run(batch)
+        check_limbs(limbs, want["c0"], want["c1"], walk, f"stream {tag}")
+        del limbs, want
+        ms, limbs = host_time_ms(lambda: list(streamed()))
+        waits = [l["wait_ms"] for l in limbs]
+        del limbs
+        batch_ms, _ = host_time_ms(lambda: fetch_to_pinned(batch()))
+        if tag.startswith("sym") and peak > batch_peak:
+            raise AssertionError(f"stream {tag}: peak {peak} B above the "
+                                 f"batch's {batch_peak} B")
+        print(f"[5b stream] {tag} n={N} L={L} B={B}: every limb equal to "
+              f"the batch's (checked after the stream was consumed); "
+              f"streamed {ms:.3f} ms to the last limb in host memory vs "
+              f"batch + fetch {batch_ms:.3f} ms (host clock, median of "
+              f"{STREAM_ITERS}); host waits {sum(waits):.3f} ms "
+              f"({' / '.join(f'{w:.3f}' for w in waits)} per limb); peak "
+              f"above inputs {peak / 2 ** 20:.1f} MiB vs batch "
+              f"{batch_peak / 2 ** 20:.1f} MiB; {smi}")
+
+    # Adapter: the CRT verify of two of the card's ciphertexts (host only).
+    out = api.se_encrypt_seeded(actx, avalues[:2],
+                                seeds=[seed_bytes(50), seed_bytes(51)])
+    c0, c1 = (out[k].cpu().numpy() for k in ("c0", "c1"))
+    api.se_cleanup(actx)
+    sk_packed = serialize.pack_ternary(
+        serialize.signed_to_file_ternary(agold["sk"]))
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = pathlib.Path(tmp)
+        serialize.write_sk(str(tmp / f"sk_{N}.dat"), sk_packed)
+        verdicts = []
+        for flip in (False, True):
+            cc0 = c0.copy()
+            if flip:
+                cc0[2, 0, 5] ^= 1
+            with open(tmp / "cts", "w") as f:
+                for b in range(2):
+                    f.write(serialize.format_poly(
+                        "v", avalues[b].astype(np.float64)))
+                    for i in range(L):
+                        f.write(serialize.format_poly(f"c0 (t{b} p{i})",
+                                                      cc0[i, b]))
+                        f.write(serialize.format_poly(f"c1 (t{b} p{i})",
+                                                      c1[i, b]))
+            verdicts.append(adapter.verify_ciphertexts(
+                str(tmp / "cts"), str(tmp / f"sk_{N}.dat"), N, L))
+    if verdicts != [True, False]:
+        raise AssertionError(f"adapter verify: {verdicts}, want "
+                             "[True, False]")
+    print("[5b adapter] verify_ciphertexts on two asym ciphertexts from the "
+          "card: passes, and fails with one coefficient of prime 2 flipped")
+    return runs
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -622,6 +844,9 @@ def main():
                               ("keccak", "ntt", "ntt_asym", "encode"))}
     for tag, counts in phase_headline_limbscan(dev, smi).items():
         runs[f"{tag} headline"] = (counts, sym_path)
+    for tag, counts in phase_api_stream(dev, smi).items():
+        runs[tag] = (counts, ("keccak", "ntt_asym", "encode")
+                     if "asym" in tag else sym_path)
     runs["calibration"] = (calib_counts, ("calib",))
     for path, (counts, needed) in runs.items():
         missing = [k for k in needed if counts[k] < 1]

@@ -54,27 +54,35 @@ class AsymEncryptor(EncryptorBase):
                                  ma.shoup_quotient(pk, qv).contiguous())
 
     def forward(self, values, seed_words):
-        B = values.shape[0]
-        n = self.parms.degree
-        L = len(self.moduli)
+        pt, pte, u, e1, ok = self.prologue(values, seed_words)
+        c0, c1 = self.combine(u, e1, pte)
+        return {"c0": c0, "c1": c1, "pt": pt, "pte": pte, "ok": ok}
 
+    def prologue(self, values, seed_words):
+        """Encode (KE), then the private stream's draws, counters chaining
+        u -> e0 -> e1 (ckks_asym.c:173-203): (pt, pte = pt + e0, u, e1
+        int64 (B, n), ok (B,))."""
+        n = self.parms.degree
         pt, ok = self.encode(values)
-        # Private stream, counters chaining u -> e0 -> e1 (ckks_asym.c:173-203).
-        counter = sp.counter_zero((B,), values.device)
+        counter = sp.counter_zero((values.shape[0],), values.device)
         u, counter, ok_t = sp.sample_ternary(seed_words, counter, n)
         e0, counter = sp.sample_cbd(seed_words, counter, n)
         e1, counter = sp.sample_cbd(seed_words, counter, n)
-        pte = pt + e0
-        ok = ok & ok_t
+        return pt, pt + e0, u, e1, ok & ok_t
 
-        mods = self.limb_mod()
+    def combine(self, u, e1, pte, limbs=slice(None)):
+        """(c0, c1) (l, B, n) of the limbs `limbs` (a slice of the
+        per-limb buffers) through KA, from the prologue's u, e1, pte."""
+        mods = self.limb_mod(limbs)
+        L = mods.q.shape[0]
+        B, n = u.shape
         u_l = sp.ternary_to_modq_any(u[None], mods).expand(L, B, n)
         e1_l = _signed_to_modq(e1[None], mods.q).expand(L, B, n)
         pte_l = ma.reduce_pte_i64(pte[None], mods)
-        c0, c1 = ntt_asym(u_l.contiguous(), e1_l.contiguous(), pte_l,
-                          self.ntt_op, self.ntt_quot, self.q,
-                          self.pk0, self.pk0_quot, self.pk1, self.pk1_quot)
-        return {"c0": c0, "c1": c1, "pt": pt, "pte": pte, "ok": ok}
+        return ntt_asym(u_l.contiguous(), e1_l.contiguous(), pte_l,
+                        self.ntt_op[limbs], self.ntt_quot[limbs],
+                        self.q[limbs], self.pk0[limbs], self.pk0_quot[limbs],
+                        self.pk1[limbs], self.pk1_quot[limbs])
 
 
 def gen_pk_batch(sk_signed, pk_seed_words, ep, parms: Parms):

@@ -59,10 +59,11 @@ class EncryptorBase(nn.Module):
         return encode_f64(values, self.imap, self.tw_re, self.tw_im,
                           self.scale_n)
 
-    def limb_mod(self):
-        """The per-limb Mod, shaped (L, 1, 1) against (L, B, n) data."""
-        return ma.Mod(self.q[:, None, None], self.r0[:, None, None],
-                      self.r1[:, None, None], None)
+    def limb_mod(self, limbs=slice(None)):
+        """The Mod of the limbs `limbs` (a slice of the per-limb buffers),
+        shaped (l, 1, 1) against (l, B, n) data."""
+        return ma.Mod(self.q[limbs, None, None], self.r0[limbs, None, None],
+                      self.r1[limbs, None, None], None)
 
 
 class SymEncryptor(EncryptorBase):
@@ -88,13 +89,19 @@ class SymEncryptor(EncryptorBase):
                        self.q)[:, 0, :]
 
     def forward(self, values, sk_signed, share_words, err_words):
-        # --- encode + error (ckks_encode_base + ckks_sym_init) ---
+        pt, pte, ok = self.encode_with_error(values, err_words)
+        out = self.encrypt_pte(pte, sk_signed, share_words, ok)
+        out["pt"] = pt
+        return out
+
+    def encode_with_error(self, values, err_words):
+        """Encode (KE) and add the CBD error drawn from the private stream
+        at counter 0 (ckks_encode_base + ckks_sym_init): (pt, pte int64
+        (B, n), ok (B,))."""
         pt, ok = self.encode(values)
         e, _ = sp.sample_cbd(err_words, sp.counter_zero(
             (values.shape[0],), values.device), self.parms.degree)
-        out = self.encrypt_pte(pt + e, sk_signed, share_words, ok)
-        out["pt"] = pt
-        return out
+        return pt, pt + e, ok
 
     def draw_c1(self, share_words):
         """Uniform a per prime; the counter chains from limb to limb."""
@@ -105,13 +112,25 @@ class SymEncryptor(EncryptorBase):
         """c0, c1 from the encoded pt + e (int64 (B, n)): a dict with c0,
         c1 (L, B, n), pte and ok (B,), the given ok (all True when None)
         and-ed with the sampler's."""
-        pte_red = ma.reduce_pte_i64(pte[None], self.limb_mod())  # (L, B, n)
+        # pte_red first: its temporaries are gone before a is drawn, which
+        # keeps the peak one (L, B, n) tensor lower.
+        pte_red = self.reduce_pte(pte)
         a, ok_u = self.draw_c1(share_words)
         if ok is not None:
             ok_u = ok & ok_u
-        c0 = _combine_c0(pte_red, a, self.ntt_secret(sk_signed),
-                         self.ntt_op, self.ntt_quot, self.q)
+        c0 = self.combine_c0(pte_red, a, self.ntt_secret(sk_signed))
         return {"c0": c0, "c1": a, "pte": pte, "ok": ok_u}
+
+    def reduce_pte(self, pte, limbs=slice(None)):
+        """pte int64 (B, n) mod each prime of the limbs `limbs` (a slice of
+        the per-limb buffers): (l, B, n)."""
+        return ma.reduce_pte_i64(pte[None], self.limb_mod(limbs))
+
+    def combine_c0(self, pte_red, a, ntt_s, limbs=slice(None)):
+        """c0 (l, B, n) of the limbs `limbs`: pte_red, a (l, B, n) and
+        ntt_s (l, n) of those limbs."""
+        return _combine_c0(pte_red, a, ntt_s, self.ntt_op[limbs],
+                           self.ntt_quot[limbs], self.q[limbs])
 
 
 def _combine_c0(pte_red, a, ntt_s, op, quot, q):

@@ -20,6 +20,16 @@ def parms_from_jax(p) -> Parms:
                  scale=float(p.scale))
 
 
+def context_from_jax(ctx, device):
+    """The port's SEContext on `device` from the JAX package's: its parms,
+    encrypt type and encode mode, and copies of its numpy sk_signed, pk0
+    and pk1 (the encryptor is built and the keys uploaded as
+    se_setup_custom does)."""
+    from .api import _make_context
+    return _make_context(parms_from_jax(ctx.parms), ctx.encrypt_type, device,
+                         ctx.sk_signed, ctx.pk0, ctx.pk1, ctx.encode_mode)
+
+
 def unpack_ternary(packed, n: int) -> np.ndarray:
     """2-bit packed ternary polynomial (4 coefficients per byte, most
     significant pair first, value + 1), as the reference stores the secret

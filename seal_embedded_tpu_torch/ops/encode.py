@@ -19,31 +19,18 @@ this one path.
 from __future__ import annotations
 
 import math
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
 
 from ..config import Parms, bitrev
+from ..golden.encode import calc_index_map
 
 ENCODE_MODES = ("sf", "f64", "dd")
 
 # |coeff| bound of the overflow flag: float(0x7FFFFFFFFFFFFFFF) == 2^63.
 _I64_BOUND = float(np.float64(0x7FFFFFFFFFFFFFFF))
-
-
-def calc_index_map(n: int, logn: int) -> np.ndarray:
-    """Generator-3 orbit merged with bitrev (ckks_common.c:32-68); uint16."""
-    index_map = np.zeros(n, dtype=np.uint16)
-    m = 2 * n
-    pos = 1
-    for i in range(n // 2):
-        index1 = (pos - 1) // 2
-        index2 = n - index1 - 1
-        index_map[i] = bitrev(index1, logn)
-        index_map[i + n // 2] = bitrev(index2, logn)
-        pos = (pos * 3) & (m - 1)
-    return index_map
 
 
 @lru_cache(maxsize=32)
@@ -74,6 +61,27 @@ def ifft_root_tables(n: int) -> tuple[tuple[np.ndarray, np.ndarray], ...]:
             im[j] = -math.sin(ang)  # conjugate
         out.append((re, im))
         h //= 2
+    return tuple(out)
+
+
+@lru_cache(maxsize=32)
+def fft_root_tables(n: int) -> tuple[tuple[np.ndarray, np.ndarray], ...]:
+    """Per-round forward (decode) roots (fft.c:183-213): round r has
+    h = 2^r groups, s_j = W^bitrev(h+j, logn)."""
+    logn = n.bit_length() - 1
+    m = 2 * n
+    out = []
+    h = 1
+    for _ in range(logn):
+        re = np.zeros(h, dtype=np.float64)
+        im = np.zeros(h, dtype=np.float64)
+        for j in range(h):
+            k = bitrev(h + j, logn) & (m - 1)
+            ang = 2.0 * math.pi * float(k) / float(m)
+            re[j] = math.cos(ang)
+            im[j] = math.sin(ang)
+        out.append((re, im))
+        h *= 2
     return tuple(out)
 
 
@@ -179,3 +187,38 @@ def encode_any(values, parms: Parms, mode: str = "sf", root_tables=None,
     return encode_f64(values, *table_tensors(parms.degree, values.device,
                                              root_tables, imap),
                       scale_over_n(parms))
+
+
+def decode(pte_signed, parms: Parms):
+    """Decode oracle (test side, like the reference's
+    check_decode_decrypt_inpl): signed int64 coefficients (..., n) -> the
+    n/2 real slot values (..., n/2), float64 on the same device.
+
+    The forward FFT in separate re/im f64 planes (fft.c:146-213), then
+    division by the scale and the index map's first half.  The JAX package
+    has no kernel for it; here too it is plain torch."""
+    n = parms.degree
+    batch = pte_signed.shape[:-1]
+    dev = pte_signed.device
+    re = pte_signed.to(torch.float64)
+    im = torch.zeros_like(re)
+    h, tt = 1, n // 2
+    for sre_np, sim_np in fft_root_tables(n):
+        sre = torch.as_tensor(sre_np, device=dev).reshape(h, 1)
+        sim = torch.as_tensor(sim_np, device=dev).reshape(h, 1)
+        re_v = re.reshape(batch + (h, 2, tt))
+        im_v = im.reshape(batch + (h, 2, tt))
+        ure, uim = re_v[..., 0, :], im_v[..., 0, :]
+        wre = re_v[..., 1, :] * sre - im_v[..., 1, :] * sim
+        wim = re_v[..., 1, :] * sim + im_v[..., 1, :] * sre
+        re = torch.stack([ure + wre, ure - wre], dim=-2).reshape(batch + (n,))
+        im = torch.stack([uim + wim, uim - wim], dim=-2).reshape(batch + (n,))
+        h, tt = h * 2, tt // 2
+    imap = torch.as_tensor(index_map_np(n)[: n // 2].astype(np.int64),
+                           device=dev)
+    return (re / float(parms.scale))[..., imap]
+
+
+def make_decoder(parms: Parms):
+    """decode bound to its parameters (the JAX package's cached jit)."""
+    return partial(decode, parms=parms)

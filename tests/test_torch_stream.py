@@ -1,0 +1,151 @@
+"""The port's per-prime streaming (ckks/stream.py) on its CPU path against
+seal_embedded_tpu.ckks.stream on the same numpy inputs, limb by limb and
+byte for byte."""
+
+from functools import lru_cache
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seal_embedded_tpu import api as japi
+from seal_embedded_tpu.ckks import stream as jstream
+from seal_embedded_tpu.ckks.asym import gen_pk_batch
+from seal_embedded_tpu.config import PRIMES_27BIT, Parms
+from seal_embedded_tpu.io import network as jnet
+from seal_embedded_tpu.ops.keccak import seed_to_words
+from seal_embedded_tpu_torch.ckks import stream as tstream
+from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor
+from seal_embedded_tpu_torch.ckks.limbwise import LimbscanEncryptor
+from seal_embedded_tpu_torch.convert import (context_from_jax, parms_from_jax,
+                                             pk_to_device, state_to_device)
+from seal_embedded_tpu_torch.io import network as tnet
+
+from conftest import seed_bytes
+
+torch.set_num_threads(2)
+
+P = Parms(degree=1024, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)
+B = 2
+
+
+def _inputs(seed):
+    rng = np.random.default_rng(seed)
+    n = P.degree
+    values = rng.uniform(-1, 1, (B, n // 2)).astype(np.float32)
+    sk = (rng.integers(0, 3, n) - 1).astype(np.int32)
+    share = rng.integers(0, 2 ** 32, (B, 16)).astype(np.uint32)
+    err = rng.integers(0, 2 ** 32, (B, 16)).astype(np.uint32)
+    return values, sk, share, err
+
+
+@lru_cache(maxsize=None)
+def _jax_pk():
+    rng = np.random.default_rng(7)
+    n = P.degree
+    sk = (rng.integers(0, 3, n) - 1).astype(np.int32)
+    ep = rng.integers(-20, 21, n).astype(np.int32)
+    pk_seed = seed_to_words(seed_bytes(4))[None, :]
+    pk0, pk1 = gen_pk_batch(jnp.asarray(sk), jnp.asarray(pk_seed),
+                            jnp.asarray(ep), P)
+    return sk, np.asarray(pk0), np.asarray(pk1)
+
+
+def _check_limbs(got, want, order):
+    walk = [0, 1] if order == "forward" else [1, 0]
+    assert [l["prime_idx"] for l in got] == walk
+    assert [l["prime_idx"] for l in want] == walk
+    for g, w in zip(got, want):
+        assert g["q"] == w["q"] and g["ok"] is True
+        for k in ("c0", "c1"):
+            assert g[k].dtype == np.uint32 and g[k].shape == (B, P.degree)
+            assert np.array_equal(g[k], w[k]), (order, g["prime_idx"], k)
+    # Every yielded array owns its memory.
+    arrays = [l[k] for l in got for k in ("c0", "c1")]
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(arrays)
+                   for b in arrays[i + 1:])
+
+
+@pytest.mark.parametrize("order", ["forward", "reverse"])
+def test_sym_encrypt_stream_vs_jax(order):
+    values, sk, share, err = _inputs(0)
+    want = list(jstream.sym_encrypt_stream(
+        *(jnp.asarray(a) for a in (values, sk, share, err)), P, "f64", order))
+    got = list(tstream.sym_encrypt_stream(
+        *state_to_device(values, sk, share, err), parms_from_jax(P), "f64",
+        order))
+    _check_limbs(got, want, order)
+    assert all(l["wait_ms"] == 0.0 for l in got)
+    # The limb-scan encryptor of the same walk gives the same limbs.
+    ref = LimbscanEncryptor(parms_from_jax(P), "reference", order)(
+        *state_to_device(values, sk, share, err))
+    for j, l in enumerate(got):
+        assert np.array_equal(l["c0"], ref["c0"][j].numpy())
+
+
+@pytest.mark.parametrize("order", ["forward", "reverse"])
+def test_asym_encrypt_stream_vs_jax(order):
+    _, pk0, pk1 = _jax_pk()
+    values, _, _, err = _inputs(1)
+    want = list(jstream.asym_encrypt_stream(
+        jnp.asarray(values), jnp.asarray(pk0), jnp.asarray(pk1),
+        jnp.asarray(err), P, "f64", order))
+    tpk = pk_to_device(pk0, pk1)
+    got = list(tstream.asym_encrypt_stream(
+        torch.as_tensor(values), *tpk, torch.as_tensor(err.astype(np.int64)),
+        parms_from_jax(P), "f64", order))
+    _check_limbs(got, want, order)
+    batch = AsymEncryptor(parms_from_jax(P), *tpk)(
+        torch.as_tensor(values), torch.as_tensor(err.astype(np.int64)))
+    for l in got:
+        assert np.array_equal(l["c1"], batch["c1"][l["prime_idx"]].numpy())
+
+
+@pytest.mark.parametrize("kind", ["sym", "asym"])
+@pytest.mark.parametrize("order", ["forward", "reverse"])
+def test_se_encrypt_streaming_sent_bytes_vs_jax(kind, order):
+    values, sk, _, _ = _inputs(2)
+    if kind == "asym":
+        sk, pk0, pk1 = _jax_pk()
+        jctx = japi.SEContext(parms=P, encrypt_type=japi.ASYM,
+                              sk_signed=sk, pk0=pk0, pk1=pk1)
+    else:
+        jctx = japi.SEContext(parms=P, encrypt_type=japi.SYM, sk_signed=sk)
+    share = [seed_bytes(10 + b) for b in range(B)]
+    err = [seed_bytes(20 + b) for b in range(B)]
+    jsend, jstore = jnet.collecting_sender()
+    jout = jstream.se_encrypt_streaming(jctx, values, share, err, jsend, order)
+    tsend, tstore = tnet.collecting_sender()
+    tout = tstream.se_encrypt_streaming(context_from_jax(jctx, "cpu"), values,
+                                        share, err, tsend, order)
+    assert len(tstore) == 2 * B * P.nprimes and tstore == jstore
+    _check_limbs(tout, jout, order)
+
+
+def test_se_encrypt_streaming_missing_seeds_raise_valueerror():
+    """R3: the JAX function dies with a TypeError inside its seed
+    conversion when a seed list is left at None; the port names it."""
+    values, sk, _, _ = _inputs(3)
+    jctx = japi.SEContext(parms=P, encrypt_type=japi.SYM, sk_signed=sk)
+    with pytest.raises(TypeError):
+        jstream.se_encrypt_streaming(jctx, values)
+    ctx = context_from_jax(jctx, "cpu")
+    with pytest.raises(ValueError, match="err_seeds"):
+        tstream.se_encrypt_streaming(ctx, values)
+    with pytest.raises(ValueError, match="share_seeds"):
+        tstream.se_encrypt_streaming(ctx, values,
+                                     err_seeds=[seed_bytes(1)] * B)
+
+
+def test_stream_argument_checks():
+    values, sk, share, err = _inputs(4)
+    args = state_to_device(values, sk, share, err)
+    tp = parms_from_jax(P)
+    with pytest.raises(ValueError, match="order"):
+        tstream.sym_encrypt_stream(*args, tp, "f64", "sideways")
+    with pytest.raises(ValueError, match="encode mode"):
+        tstream.sym_encrypt_stream(*args, tp, "fp16")
+    with pytest.raises(ValueError, match="order"):
+        tstream.sym_stream_with(LimbscanEncryptor(tp, order="reverse"),
+                                *args, order="forward")
