@@ -17,19 +17,25 @@ line each:
 
 1. device: the card, its power limit, nvcc's version;
 2. build: the kernels from ``seal_embedded_tpu_torch/csrc/`` (sm_90a);
-3. each kernel (KK Keccak, KN NTT, KA asym NTT, KE encode) against its
-   plain torch version at the main path's shapes, bit for bit, and timed
-   beside it;
+3. each kernel (KK Keccak in its base, queue, CBD, ternary roles, with
+   explicit counters and seed-broadcast, and its CBD-values role; KN NTT
+   unfused and fused from the int64 pte on edge values; KA asym NTT; KE
+   encode) against its plain torch version at the main path's shapes,
+   bit for bit, and timed beside it through its wrapper and alone (the
+   profiler's kernel time);
 3b. calibrate: KC (both op mixes) against its plain version, bit for
    bit, and timed beside it; the measured keccak and ntt ceilings at a
-   full-card tile count; each KK, KN and KA row's sol_frac_calibrated;
+   full-card tile count; each row's bound (its bytes at 3.35 TB/s or its
+   integer instructions at the SMs' integer rate, the larger), which its
+   time alone may not beat, its roofline share, and each KK, KN and KA
+   row's sol_frac_calibrated through the wrapper and alone;
 4. the port on the card against all seven sym and all three asym
    C-reference golden files (pk generation included), the sym goldens
    also through the limb-scan encryptor, sym_encrypt_batch and expand_c1;
 5. the headline batches (sym, asym, limb-scan reference, parallel and
    reverse, sym_encrypt_batch), rows 0..5 golden where the layout is the
    reference's, the others checked by expand_c1 and decrypt_batch: timed
-   with CUDA events, peak memory;
+   with CUDA events, peak memory; sym and asym also on the host clock;
 5b. api + stream, on the sym headline's inputs: ``se_setup_custom`` +
    ``se_encrypt_seeded`` sym (golden rows, torch.equal to
    ``SymEncryptor``, the sent bytes on 16 messages, the seed-only blobs
@@ -60,6 +66,7 @@ import time
 import numpy as np
 import torch
 
+from perf_stages import kernel_alone_ms
 from seal_embedded_tpu_torch import adapter, api
 from seal_embedded_tpu_torch.ckks import stream
 from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor, gen_pk_batch
@@ -113,8 +120,30 @@ CALIB_MID_ITERS = 512
 CALIB_BLOCKS_PER_SM = (2, 4, 6)
 CALIB_LANE_ITERS_PER_SM = 2 * 1024 * 32768
 
+# Bounds.  Bytes: each input read once and each output written once, a
+# value at the width it needs (u32 words and values below q 4 bytes, pte
+# and KE's coefficients 8, CBD values in [-63, 63] 1), at the H100's
+# 3.35 TB/s.  Operations: the 32-bit integer-pipe instructions the work
+# needs at least, at 64 per clock per SM (the CUDA C++ Programming
+# Guide's throughput of 32-bit logic, shift, funnel-shift and add on
+# compute capability 9.0) on every SM at the card's maximum SM clock:
+# * a Keccak-f[1600] permutation on 32-bit halves, 24 rounds of: theta's
+#   column parities 20 LOP3, their rotation by 1 5 SHF (bit-interleaved
+#   halves), theta's XORs 50 LOP3, rho 47 SHF, chi 50 LOP3, iota 1 LOP3:
+#   173 a round, 4152 (the absorb not counted);
+# * a Harvey butterfly: the lazy correction and the two adds, 4 (its
+#   three products go to the FMA pipe);
+# * KC's mixes, per chain and iteration: keccak a rotation and 2 LOP3, 3;
+#   ntt a butterfly per pair of chains, 2.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_SM_CLOCK = 64
+INT_OPS_PER_UNIT = {"keccak": 4152, "ntt": 4}
+INT_OPS_PER_MIX_CHAIN = {"keccak": 3, "ntt": 2}
+
 # Launch counters of the kernel wrappers: name -> (module, attribute).
-COUNTERS = {"keccak": (k_keccak, "launches"), "ntt": (k_ntt, "launches"),
+COUNTERS = {"keccak": (k_keccak, "launches"),
+            "keccak_cbd": (k_keccak, "cbd_launches"),
+            "ntt": (k_ntt, "launches"), "ntt_pte": (k_ntt, "pte_launches"),
             "ntt_asym": (k_ntt, "asym_launches"),
             "encode": (k_encode, "launches"), "calib": (k_calib, "launches")}
 
@@ -149,18 +178,30 @@ def require_equal(name, got, want):
     return err
 
 
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
+    """The card: returns (its name and power limit as nvidia-smi gives
+    them, its integer-pipe rate in instructions/s at its maximum SM
+    clock)."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_rate = INT_OPS_PER_SM_CLOCK * sms * mhz * 1e6
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     print(f"[1 device] {torch.cuda.get_device_name(0)} | torch "
-          f"{torch.__version__} cuda {torch.version.cuda} | {nvcc[-1]}")
+          f"{torch.__version__} cuda {torch.version.cuda} | {nvcc[-1]} | "
+          f"{sms} SMs, max SM clock {mhz:.0f} MHz: integer pipe "
+          f"{int_rate / 1e12:.3f} Tinstr/s")
     print(smi)
-    return smi
+    return smi, int_rate
 
 
 def phase_build():
@@ -183,22 +224,49 @@ def timed_pair(kernel_fn, plain_fn):
     return cuda_time_ms(kernel_fn, TIME_ITERS), cuda_time_ms(plain_fn, 3, 1)
 
 
+def set_kernel_alone_ms(rows):
+    """Each row's "kernel_ms": device ms per call of its "fn" in the
+    port's own kernels, the kernel alone; the fn is dropped after (its
+    inputs would count in the later phases' peaks)."""
+    for r, ms in zip(rows, kernel_alone_ms([r.pop("fn") for r in rows],
+                                           TIME_ITERS)):
+        r["kernel_ms"] = ms
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def u32_bytes(*tensors) -> int:
+    """The bytes of u32 values (held in int64), at 4 bytes each."""
+    return 4 * sum(t.numel() for t in tensors)
+
+
 def phase_kernels(dev):
     rng = np.random.default_rng(1)
     rows = []
 
-    def row(name, source, replaces, counter, err, ms, plain_ms, shape,
-            work):
-        """work: ("keccak", permutations) or ("ntt", butterflies), what
-        phase 3b reckons the row's sol_frac_calibrated from."""
+    def row(name, source, replaces, counter, err, fn, plain_fn, shape, work,
+            moved):
+        """One kernel row: fn through the wrapper and (in phase 3b) alone,
+        plain_fn the plain version; fn is kept, so it binds its inputs.
+        work: ("keccak", permutations) or ("ntt", butterflies), what
+        phase 3b reckons the row's bound and sol_frac_calibrated from;
+        moved: the bytes the function must read and write, each input once
+        and each output once."""
+        ms, pms = timed_pair(fn, plain_fn)
+        ops = 0 if work is None else work[1] * INT_OPS_PER_UNIT[work[0]]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "counter": counter,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "shape": shape, "work": work})
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                     "fn": fn, "shape": shape, "work": work, "ops": ops,
+                     "bytes": moved})
 
-    # KK: the uniform base draw (121 blocks), the queue (nwords=1, 160 per
-    # stream: the chain-aware queue_cap_for) and the CBD fills (nwords=24,
-    # 256 per stream), with counters at 2^32 - 1 and 2^64 - 1 so the carry
+    # KK: the uniform base draw (121 blocks, one warp per stream), the
+    # queue (nwords=1, 160 per stream: the chain-aware queue_cap_for) and
+    # the CBD fills (nwords=24, 256 per stream) with explicit counters, the
+    # same two through the seed-broadcast form the samplers call, and the
+    # CBD values role, with counters at 2^32 - 1 and 2^64 - 1 so the carry
     # paths run.
     seeds = u32(rng, (B, 16), dev)
     ctr = u32(rng, (B, 2), dev)
@@ -207,13 +275,16 @@ def phase_kernels(dev):
     ctr[2] = torch.tensor([2 ** 32 - 170, 7])
     nblocks = -(-4 * N // 136)
     cap = sp.queue_cap_for(N, default_parms(N, L).moduli)
+    nfills = N // 16
     kk = "seal_embedded_tpu_torch/csrc/keccak.cu"
     tq = 1 + torch.arange(sp.TERNARY_QUEUE_CAP, device=dev)
     cases = (("base", nblocks, None, ctr, K1),
-             ("queue", 1, 1, sp._c_offsets(ctr, 1 + torch.arange(cap, device=dev)), K2),
-             ("cbd", 1, 24, sp._c_offsets(ctr, torch.arange(N // 16, device=dev)), K2),
+             ("queue", 1, 1, kc.counter_offsets(
+                 ctr, 1 + torch.arange(cap, device=dev)), K2),
+             ("cbd", 1, 24, kc.counter_offsets(
+                 ctr, torch.arange(nfills, device=dev)), K2),
              ("ternary", 1, 24, ctr, K2),
-             ("ternary queue", 1, 1, sp._c_offsets(ctr, tq), K2))
+             ("ternary queue", 1, 1, kc.counter_offsets(ctr, tq), K2))
     for role, nb, nw, c, replaces in cases:
         s = kc.align_seed(seeds, c).expand(c.shape[:-1] + (16,))
         s = s.reshape(-1, 16).contiguous()
@@ -221,57 +292,92 @@ def phase_kernels(dev):
         got = k_keccak.keccak_squeeze(s, c, nb, nw)
         want = kc.shake256_words(s, c, nb, nw)
         err = require_equal(f"KK {role}", got, want)
-        ms, pms = timed_pair(lambda: k_keccak.keccak_squeeze(s, c, nb, nw),
-                             lambda: kc.shake256_words(s, c, nb, nw))
-        row(f"keccak_squeeze {role}", kk, replaces, "keccak", err, ms, pms,
+        row(f"keccak_squeeze {role}", kk, replaces, "keccak", err,
+            lambda s=s, c=c, nb=nb, nw=nw: k_keccak.keccak_squeeze(
+                s, c, nb, nw),
+            lambda: kc.shake256_words(s, c, nb, nw),
             f"{s.shape[0]} streams x {nb} blocks, nwords={nw}",
-            ("keccak", s.shape[0] * nb))
+            ("keccak", s.shape[0] * nb), u32_bytes(s, c, got))
+    for role, per_seed, start, nw in (("queue broadcast", cap, 1, 1),
+                                      ("cbd broadcast", nfills, 0, 24)):
+        offs = start + torch.arange(per_seed, device=dev)
+        got = k_keccak.keccak_squeeze(seeds, ctr, 1, nw, per_seed, start)
+        want = kc.shake256_words(seeds, kc.counter_offsets(ctr, offs), 1,
+                                 nw).reshape(B * per_seed, nw)
+        err = require_equal(f"KK {role}", got, want)
+        row(f"keccak_squeeze {role}", kk, K2, "keccak", err,
+            lambda nw=nw, per_seed=per_seed, start=start:
+                k_keccak.keccak_squeeze(seeds, ctr, 1, nw, per_seed, start),
+            lambda: kc.shake256_words(seeds, kc.counter_offsets(ctr, offs),
+                                      1, nw),
+            f"{B} seeds x {per_seed} streams from counter + {start}, "
+            f"nwords={nw}", ("keccak", B * per_seed),
+            u32_bytes(seeds, ctr, got))
+    got = k_keccak.cbd_values(seeds, ctr, N)
+    err = require_equal("KK cbd values", got, kc.cbd_values(seeds, ctr, N))
+    row("cbd_values", kk, K2, "keccak_cbd", err,
+        lambda: k_keccak.cbd_values(seeds, ctr, N),
+        lambda: kc.cbd_values(seeds, ctr, N),
+        f"{B} seeds x {nfills} fills -> (B, n) = ({B}, {N}) values",
+        ("keccak", B * nfills), u32_bytes(seeds, ctr) + got.numel())
 
-    # KN at the main paths' shapes: the fused c0 NTT (3, 1024, 4096) with
-    # inputs that include q, ntt(s) (3, 1, 4096) and sym_encrypt_batch's
-    # unfused ntt(pte) (3, 1024, 4096); then the n = 16384 rows.
+    # KN at the main paths' shapes, on inputs that include q: ntt(s)
+    # (3, 1, 4096) and sym_encrypt_batch's ntt(pte) (3, 1024, 4096); then
+    # n = 16384; then KN from pte (the main path's c0) at (3, 1024, 4096),
+    # the stream's (1, 1024, 4096) and n = 16384, on edge pte values.
     kn = "seal_embedded_tpu_torch/csrc/ntt.cu"
-    for n, lim, batch, fused, replaces in ((N, L, B, True, K4),
-                                           (N, L, 1, False, K3),
-                                           (N, L, B, False, K3),
-                                           (16384, 3, 1, False, K3),
-                                           (16384, 3, 1, True, K4)):
+
+    def tables(n, lim):
         moduli = default_parms(n, lim).moduli
         op, quot = (torch.as_tensor(t.astype(np.int64), device=dev)
                     for t in ntt_ops.ntt_tables_stacked(n, moduli))
-        q = torch.tensor(moduli, dtype=torch.int64, device=dev)
-        qv = q[:, None, None]
-        x = u32(rng, (lim, batch, n), dev) % (qv + 1)
-        x[:, :, :8] = qv
-        extra = {}
-        if fused:
-            a = u32(rng, (lim, batch, n), dev) % qv
-            s_op = u32(rng, (lim, n), dev) % q[:, None]
-            extra = {"a": a, "s_op": s_op,
-                     "s_quot": ma.shoup_quotient(s_op, q[:, None])}
-        got = k_ntt.ntt_fwd(x, op, quot, q, **extra)
-        want = ntt_ops.ntt_limbs(x, op, quot, q)
-        if fused:
-            want = ntt_ops.sym_epilogue(want, extra["a"], extra["s_op"],
-                                        extra["s_quot"], q)
-        tag = ("fused c0" if fused
-               else "ntt" if batch == 1 else f"ntt B={batch}")
-        err = require_equal(f"KN {tag} n={n} B={batch}", got, want)
+        return moduli, op, quot, torch.tensor(moduli, dtype=torch.int64,
+                                              device=dev)
+
+    for n, lim, batch in ((N, L, 1), (N, L, B), (16384, 3, 1)):
+        moduli, op, quot, q = tables(n, lim)
+        x = u32(rng, (lim, batch, n), dev) % (q[:, None, None] + 1)
+        x[:, :, :8] = q[:, None, None]
+        got = k_ntt.ntt_fwd(x, op, quot, q)
+        tag = "ntt" if batch == 1 else f"ntt B={batch}"
+        err = require_equal(f"KN {tag} n={n}", got,
+                            ntt_ops.ntt_limbs(x, op, quot, q))
         if n == N:
-            ms, pms = timed_pair(
-                lambda: k_ntt.ntt_fwd(x, op, quot, q, **extra),
-                lambda: (ntt_ops.sym_epilogue(
-                    ntt_ops.ntt_limbs(x, op, quot, q), extra["a"],
-                    extra["s_op"], extra["s_quot"], q) if fused
-                    else ntt_ops.ntt_limbs(x, op, quot, q)))
-            row(f"ntt_fwd {tag}", kn, replaces, "ntt", err, ms, pms,
+            row(f"ntt_fwd {tag}", kn, K3, "ntt", err,
+                lambda x=x, op=op, quot=quot, q=q: k_ntt.ntt_fwd(
+                    x, op, quot, q),
+                lambda: ntt_ops.ntt_limbs(x, op, quot, q),
                 f"(L, B, n) = ({lim}, {batch}, {n})",
-                ("ntt", k_calib.ntt_butterflies(lim, batch, n)))
+                ("ntt", k_calib.ntt_butterflies(lim, batch, n)),
+                u32_bytes(x, op, quot, q, got))
         else:
             print(f"[3 kernels] KN {tag} n={n} B={batch}: bit-equal")
 
+    for n, lim, batch in ((N, L, B), (N, 1, B), (16384, 3, 1)):
+        moduli, op, quot, q = tables(n, lim)
+        mods = ma.modpack(moduli, dev)
+        pte = edge_pte(rng, moduli, batch, n, dev)
+        a = u32(rng, (lim, batch, n), dev) % q[:, None, None]
+        s_op = u32(rng, (lim, n), dev) % q[:, None]
+        args = (pte, a, s_op, ma.shoup_quotient(s_op, q[:, None]), op, quot,
+                q, mods.r0, mods.r1)
+        got = k_ntt.ntt_sym_from_pte(*args)
+        err = require_equal(f"KN from pte n={n} L={lim} B={batch}", got,
+                            ntt_ops.ntt_sym_from_pte_plain(*args))
+        if n == N:
+            row(f"ntt_sym_from_pte L={lim}", kn, K4, "ntt_pte", err,
+                lambda args=args: k_ntt.ntt_sym_from_pte(*args),
+                lambda: ntt_ops.ntt_sym_from_pte_plain(*args),
+                f"pte (B, n) = ({batch}, {n}) -> (L, B, n) = ({lim}, "
+                f"{batch}, {n}), edge pte values",
+                ("ntt", k_calib.ntt_butterflies(lim, batch, n)),
+                nbytes(pte) + u32_bytes(*args[1:], got))
+        else:
+            print(f"[3 kernels] KN from pte n={n} L={lim} B={batch}, edge "
+                  "pte values: bit-equal")
+
     # KA at the asym headline's shape with the 4096_3 golden pk, then at
-    # n = 16384 with the 16384_13 golden pk (128 KB of shared memory per
+    # n = 16384 with the 16384_13 golden pk (144 KB of shared memory per
     # block); inputs below q + 1 with q itself at the head of every row.
     for n, lim, batch in ((N, L, B), (16384, 13, 2)):
         gold = load_golden("asym", n, lim)
@@ -293,11 +399,12 @@ def phase_kernels(dev):
         err = max(require_equal(f"KA {c} n={n} B={batch}", g, w)
                   for c, g, w in zip(("c0", "c1"), got, want))
         if n == N:
-            ms, pms = timed_pair(lambda: k_ntt.ntt_asym(*args),
-                                 lambda: ntt_ops.ntt_asym_plain(*args))
-            row("ntt_asym", kn, K6, "ntt_asym", err, ms, pms,
+            row("ntt_asym", kn, K6, "ntt_asym", err,
+                lambda args=args: k_ntt.ntt_asym(*args),
+                lambda: ntt_ops.ntt_asym_plain(*args),
                 f"(L, B, n) = ({lim}, {batch}, {n}), golden pk",
-                ("ntt", k_calib.ntt_butterflies(lim, batch, n, 3)))
+                ("ntt", k_calib.ntt_butterflies(lim, batch, n, 3)),
+                u32_bytes(*args, *got))
         else:
             print(f"[3 kernels] KA n={n} L={lim} B={batch}: bit-equal")
 
@@ -324,22 +431,46 @@ def phase_kernels(dev):
     if not (bool(want_ok[:5].all()) and not bool(want_ok[7:9].any())):
         raise AssertionError("KE: edge rows did not straddle the bound")
     err = require_equal("KE", coeff.cpu()[want_ok], want_c[want_ok])
-    ms, pms = timed_pair(
-        lambda: k_encode.encode_f64(v, imap, tw_re, tw_im, sn),
-        lambda: enc.encode_tables(v, imap, tw_re, tw_im, sn))
     row("encode_f64", "seal_embedded_tpu_torch/csrc/encode.cu", K5, "encode",
-        err, ms, pms, f"(B, vlen) = ({B}, {N // 2}), n = {N}; "
-        f"{int((~want_ok).sum())} overflow rows", None)
+        err, lambda: k_encode.encode_f64(v, imap, tw_re, tw_im, sn),
+        lambda: enc.encode_tables(v, imap, tw_re, tw_im, sn),
+        f"(B, vlen) = ({B}, {N // 2}), n = {N}; "
+        f"{int((~want_ok).sum())} overflow rows", None,
+        nbytes(v, imap, tw_re, tw_im, coeff, ok))
     for r in rows:
         print(f"[3 kernels] {r['name']} {r['shape']}: bit-equal; "
-              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms")
+              f"{r['ms']:.4f} ms through the wrapper, plain "
+              f"{r['plain_ms']:.4f} ms")
     return rows
 
 
-def phase_calibrate(dev, smi, rows):
-    """KC against its plain version, then the ceilings, then each KK, KN
-    and KA row's sol_frac_calibrated.  Returns (KC's rows, the launch
-    counts of the ceiling run)."""
+def edge_pte(rng, moduli, batch, n, dev):
+    """int64 (batch, n) plaintext + error: random values of every
+    magnitude, with 0, +-k q of each modulus, +-(2^63 - 1), INT64_MIN and
+    the encode's overflow-edge magnitudes (the largest doubles below 2^63,
+    2^62, 2^53 + 1) at the head of the rows."""
+    big = np.iinfo(np.int64)
+    x = rng.integers(big.min, big.max, (batch, n), dtype=np.int64,
+                     endpoint=True)
+    x[:, n // 2:] >>= rng.integers(0, 63, (batch, n - n // 2))
+    edges = [0, 1, -1, big.max, -big.max, big.min, 2 ** 63 - 1024,
+             -(2 ** 63 - 1024), 2 ** 62, -(2 ** 62), 2 ** 53 + 1,
+             -(2 ** 53 + 1)]
+    for q in moduli:
+        for k in (1, 2, 12345, (2 ** 63 - 1) // q):
+            edges += [k * q, -k * q, k * q + 1, -k * q - 1]
+    flat = x.reshape(-1)
+    flat[:len(edges)] = edges
+    return torch.as_tensor(x, device=dev)
+
+
+def phase_calibrate(dev, smi, int_rate, rows):
+    """KC against its plain version, then the ceilings, then each row's
+    bound and roofline share, and each KK, KN and KA row's
+    sol_frac_calibrated (bench.py's share of the measured op-mix ceiling,
+    above 1 where a kernel packs its ops better than the mix), through
+    its wrapper and alone.  Returns (KC's rows, the launch counts of the
+    ceiling run)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles = 2 * sms
     kc_src = "seal_embedded_tpu_torch/csrc/calibrate.cu"
@@ -359,8 +490,14 @@ def phase_calibrate(dev, smi, rows):
         kc_rows.append({"name": f"calib_mix {mix}", "route": "cuda",
                         "source": kc_src, "replaces": K7, "counter": "calib",
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        "fn": lambda x=x, mix=mix: k_calib.calib_mix(
+                            x, mix, CALIB_MID_ITERS),
                         "shape": f"{tiles} tiles x 8 chains x 1024 lanes, "
-                                 f"{CALIB_MID_ITERS} iters"})
+                                 f"{CALIB_MID_ITERS} iters",
+                        "work": None, "kind": mix,
+                        "ops": CALIB_MID_ITERS * 8
+                        * INT_OPS_PER_MIX_CHAIN[mix] * tiles * k_calib.LANES,
+                        "bytes": 2 * u32_bytes(x)})
         print(f"[3b calibrate] KC {mix}: bit-equal at nchain 8 and 16, "
               f"{tiles} tiles, {CALIB_CHECK_ITERS} iters; at "
               f"{CALIB_MID_ITERS} iters {ms:.4f} ms vs plain {pms:.4f} ms")
@@ -387,17 +524,40 @@ def phase_calibrate(dev, smi, rows):
               f"(source-convention u32 ops; {iters} iters, {t} tiles, "
               f"{ms:.3f} ms per call); {smi}")
 
+    set_kernel_alone_ms(rows + kc_rows)
+
+    # Each row's bound: the larger of its bytes at the HBM rate and its
+    # integer instructions at the SMs' integer rate (KE's f64 work is not
+    # counted, so its bound is its bytes).  No kernel alone may beat it.
     ceiling = {mix: v[0] for mix, v in best.items()}
-    for r in rows:
-        if r["work"] is None:
-            continue
-        kind, units = r["work"]
-        share = (k_calib.keccak_share if kind == "keccak"
-                 else k_calib.ntt_share)(units, r["ms"], ceiling[kind])
-        unit = "Gperm/s" if kind == "keccak" else "Gbfly/s"
-        print(f"[3b calibrate] {r['name']} ({r['shape']}): "
-              f"{units / r['ms'] * 1e-6:.4f} {unit} through the wrapper, "
-              f"sol_frac_calibrated {share:.4f}")
+    for r in rows + kc_rows:
+        kind = r["work"][0] if r["work"] else r.get("kind")
+        bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        bound_ops = r["ops"] / int_rate * 1e3
+        r["bound_ms"] = max(bound_bytes, bound_ops)
+        r["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
+        roofline = r["bound_ms"] / r["kernel_ms"]
+        line = (f"[3b calibrate] {r['name']} ({r['shape']}): bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+                f"({r['bytes'] / 1e6:.1f} MB at 3.35 TB/s: "
+                f"{bound_bytes:.4f} ms; {r['ops'] / 1e6:.1f} M integer "
+                f"instructions: {bound_ops:.4f} ms); roofline share "
+                f"{roofline:.4f} alone, "
+                f"{r['bound_ms'] / r['ms']:.4f} through the wrapper")
+        if roofline > 1:
+            raise AssertionError(f"{r['name']}: {r['kernel_ms']:.4f} ms "
+                                 f"alone beats its bound "
+                                 f"{r['bound_ms']:.4f} ms")
+        if r["work"]:
+            units = r["work"][1]
+            share = (k_calib.keccak_share if kind == "keccak"
+                     else k_calib.ntt_share)
+            line += (f"; sol_frac_calibrated "
+                     f"{share(units, r['ms'], ceiling[kind]):.4f} through "
+                     f"the wrapper, "
+                     f"{share(units, r['kernel_ms'], ceiling[kind]):.4f} "
+                     f"kernel alone")
+        print(line)
     return kc_rows, counts
 
 
@@ -517,6 +677,14 @@ def report_headline(tag, verified, ms, peak, smi, extra=""):
           f"{smi}")
 
 
+def host_clock(fn) -> str:
+    """fn()'s host-clock time to a finished card, median of TIME_ITERS
+    calls each started on an idle card, as report_headline's extra."""
+    ms, _ = host_time_ms(lambda: (fn(), torch.cuda.synchronize()),
+                         TIME_ITERS)
+    return f"; host clock {ms:.3f} ms/batch (median of {TIME_ITERS})"
+
+
 def counted_run(fn):
     """fn() once with every launch counter at 0 and the peak memory
     reset: (its output, the counts, the peak)."""
@@ -537,7 +705,8 @@ def phase_headline_sym(dev, smi):
     out, counts, peak = counted_run(lambda: encryptor(*args))
     check_golden_rows(out, gold, "sym headline batch")
     ms = cuda_time_ms(lambda: encryptor(*args), TIME_ITERS)
-    report_headline("sym", golden_verified(gold), ms, peak, smi)
+    report_headline("sym", golden_verified(gold), ms, peak, smi,
+                    host_clock(lambda: encryptor(*args)))
     return counts
 
 
@@ -560,7 +729,8 @@ def phase_headline_asym(dev, smi):
     ms = cuda_time_ms(lambda: encryptor(*args), TIME_ITERS)
     pk_ms = cuda_time_ms(lambda: golden_pk(gold, parms, dev), 3, 1)
     report_headline("asym", golden_verified(gold), ms, peak, smi,
-                    f"; gen_pk {pk_ms:.3f} ms (median of 3)")
+                    host_clock(lambda: encryptor(*args))
+                    + f"; gen_pk {pk_ms:.3f} ms (median of 3)")
     return counts
 
 
@@ -831,22 +1001,27 @@ def phase_api_stream(dev, smi):
 
 
 def main():
-    smi = phase_device()
+    smi, int_rate = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     rows = phase_kernels(dev)
-    kc_rows, calib_counts = phase_calibrate(dev, smi, rows)
+    kc_rows, calib_counts = phase_calibrate(dev, smi, int_rate, rows)
     rows += kc_rows
     phase_golden(dev)
-    sym_path = ("keccak", "ntt", "encode")
+    # The kernels each path must launch: sym's c0 comes from KN's from-pte
+    # entry, sym_encrypt_batch's from KN unfused and a torch combine.
+    sym_path = ("keccak", "keccak_cbd", "ntt", "ntt_pte", "encode")
+    table_path = ("keccak", "keccak_cbd", "ntt", "encode")
+    asym_path = ("keccak", "keccak_cbd", "ntt_asym", "encode")
     runs = {"sym headline": (phase_headline_sym(dev, smi), sym_path),
             "asym headline": (phase_headline_asym(dev, smi),
-                              ("keccak", "ntt", "ntt_asym", "encode"))}
+                              asym_path + ("ntt",))}
     for tag, counts in phase_headline_limbscan(dev, smi).items():
-        runs[f"{tag} headline"] = (counts, sym_path)
+        runs[f"{tag} headline"] = (counts, table_path
+                                   if "sym_encrypt_batch" in tag
+                                   else sym_path)
     for tag, counts in phase_api_stream(dev, smi).items():
-        runs[tag] = (counts, ("keccak", "ntt_asym", "encode")
-                     if "asym" in tag else sym_path)
+        runs[tag] = (counts, asym_path if "asym" in tag else sym_path)
     runs["calibration"] = (calib_counts, ("calib",))
     for path, (counts, needed) in runs.items():
         missing = [k for k in needed if counts[k] < 1]
@@ -856,12 +1031,19 @@ def main():
         print(f"[6 launches] {path} run: {counts}")
     for r in rows:
         print(f"[5 headline] kernel {r['name']} ({r['shape']}): "
-              f"{r['ms']:.4f} ms, plain torch {r['plain_ms']:.4f} ms")
+              f"{r['ms']:.4f} ms through the wrapper, {r['kernel_ms']:.4f} "
+              f"ms alone, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"plain torch {r['plain_ms']:.4f} ms")
+    # No single PyTorch call computes any of these functions (SHAKE-256,
+    # the negacyclic NTT mod q, the bit-exact f64 encode, the op mixes),
+    # so library_ms is null in every row.
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"],
                 "replaces": r["replaces"],
                 "launches": sum(c[r["counter"]] for c, _ in runs.values()),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]} for r in rows]
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                "kernel_ms": r["kernel_ms"]} for r in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

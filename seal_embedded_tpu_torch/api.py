@@ -38,14 +38,13 @@ from .ckks.asym import AsymEncryptor, gen_pk_batch
 from .ckks.fast import SymEncryptor
 from .ckks.sym import decrypt_batch
 from .config import Parms, default_parms
-from .convert import unpack_ternary
+from .convert import CUDA, unpack_ternary
 from .io import serialize
 from .ops import keccak as kc
 from .ops.encode import check_encode_mode, decode
 
 SYM = "sym"
 ASYM = "asym"
-CUDA = torch.device("cuda")
 
 
 @dataclasses.dataclass

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import Parms
+from ..convert import CUDA
 from ..ops import modarith as ma
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
@@ -44,7 +45,7 @@ class AsymEncryptor(EncryptorBase):
     and pte int64 (B, n) and ok bool (B,), the layouts of the JAX function.
     """
 
-    def __init__(self, parms: Parms, pk0, pk1, device=None):
+    def __init__(self, parms: Parms, pk0, pk1, device=CUDA):
         super().__init__(parms, device)
         qv = self.q[:, None]
         for name, pk in (("pk0", pk0), ("pk1", pk1)):

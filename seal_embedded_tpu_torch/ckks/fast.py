@@ -6,8 +6,9 @@ so the heavy parts run as the port's three kernels:
 
 * encode (KE), the CBD error and every SHAKE-256 expansion of the
   uniform sampler (KK);
-* the NTT of the plaintext+error for all limbs in one launch, fused with
-  the c0 epilogue (KN), and ntt(s) per limb through the same kernel.
+* the NTT of the plaintext+error for all limbs in one launch, reduced
+  per limb as it loads and fused with the c0 epilogue (KN), and ntt(s)
+  per limb through the same kernel.
 
 The limb loop carries only the sampler counter, the one true sequential
 dependency.  On CPU tensors every kernel wrapper runs its plain version,
@@ -21,11 +22,12 @@ import torch
 from torch import nn
 
 from ..config import Parms
+from ..convert import CUDA
 from ..ops import modarith as ma
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode, scale_over_n, table_tensors
 from ..ops.kernels.encode import encode_f64
-from ..ops.kernels.ntt import ntt_fwd
+from ..ops.kernels.ntt import ntt_fwd, ntt_sym_from_pte
 from ..ops.ntt import ntt_tables_stacked
 
 
@@ -33,9 +35,9 @@ class EncryptorBase(nn.Module):
     """The per-parameter-set state both encryptors keep resident on
     `device` as buffers: NTT roots (ntt_op, ntt_quot), the modulus vector
     q, the Barrett constants r0, r1, the encode index map and the IFFT
-    twiddles."""
+    twiddles.  `device` defaults to the card."""
 
-    def __init__(self, parms: Parms, device=None):
+    def __init__(self, parms: Parms, device=CUDA):
         super().__init__()
         self.parms = parms
         self.moduli = tuple(int(q) for q in parms.moduli)
@@ -76,7 +78,7 @@ class SymEncryptor(EncryptorBase):
     ok bool (B,), the layouts of the JAX function.
     """
 
-    def __init__(self, parms: Parms, device=None):
+    def __init__(self, parms: Parms, device=CUDA):
         super().__init__(parms, device)
         self.queue_cap = sp.queue_cap_for(parms.degree, self.moduli)
 
@@ -112,34 +114,24 @@ class SymEncryptor(EncryptorBase):
         """c0, c1 from the encoded pt + e (int64 (B, n)): a dict with c0,
         c1 (L, B, n), pte and ok (B,), the given ok (all True when None)
         and-ed with the sampler's."""
-        # pte_red first: its temporaries are gone before a is drawn, which
-        # keeps the peak one (L, B, n) tensor lower.
-        pte_red = self.reduce_pte(pte)
         a, ok_u = self.draw_c1(share_words)
         if ok is not None:
             ok_u = ok & ok_u
-        c0 = self.combine_c0(pte_red, a, self.ntt_secret(sk_signed))
+        c0 = self.c0_from_pte(pte, a, self.ntt_secret(sk_signed))
         return {"c0": c0, "c1": a, "pte": pte, "ok": ok_u}
 
-    def reduce_pte(self, pte, limbs=slice(None)):
-        """pte int64 (B, n) mod each prime of the limbs `limbs` (a slice of
-        the per-limb buffers): (l, B, n)."""
-        return ma.reduce_pte_i64(pte[None], self.limb_mod(limbs))
-
-    def combine_c0(self, pte_red, a, ntt_s, limbs=slice(None)):
-        """c0 (l, B, n) of the limbs `limbs`: pte_red, a (l, B, n) and
-        ntt_s (l, n) of those limbs."""
-        return _combine_c0(pte_red, a, ntt_s, self.ntt_op[limbs],
-                           self.ntt_quot[limbs], self.q[limbs])
-
-
-def _combine_c0(pte_red, a, ntt_s, op, quot, q):
-    """c0 = -a * ntt(s) + ntt(pte) mod q: the NTT of pte with the epilogue
-    fused into KN at every degree (a row fits a block's shared memory up to
-    n = 16384), so ntt(pte) is never stored on its own."""
-    s_quot = ma.shoup_quotient(ntt_s, q[:, None])
-    return ntt_fwd(pte_red.contiguous(), op, quot, q, a=a.contiguous(),
-                   s_op=ntt_s.contiguous(), s_quot=s_quot.contiguous())
+    def c0_from_pte(self, pte, a, ntt_s, limbs=slice(None)):
+        """c0 = -a * ntt(s) + ntt(pte mod q) (l, B, n) of the limbs `limbs`
+        (a slice of the per-limb buffers), from pte int64 (B, n), a (l, B, n)
+        and ntt_s (l, n) of those limbs, in one KN launch: KN reduces pte per
+        limb as it loads it and fuses the epilogue, so neither the reduced
+        pte nor ntt(pte) is ever stored."""
+        q = self.q[limbs]
+        s_quot = ma.shoup_quotient(ntt_s, q[:, None])
+        return ntt_sym_from_pte(pte, a.contiguous(), ntt_s.contiguous(),
+                                s_quot.contiguous(), self.ntt_op[limbs],
+                                self.ntt_quot[limbs], q, self.r0[limbs],
+                                self.r1[limbs])
 
 
 def sym_encrypt_fused(values, sk_signed, share_words, err_words,

@@ -20,6 +20,7 @@ fused c0 run for all limbs in one KN launch each, as in ``SymEncryptor``.
 from __future__ import annotations
 
 from ..config import Parms
+from ..convert import CUDA
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
 from .fast import SymEncryptor
@@ -57,7 +58,7 @@ class LimbscanEncryptor(SymEncryptor):
     """
 
     def __init__(self, parms: Parms, layout: str = "reference",
-                 order: str = "forward", device=None):
+                 order: str = "forward", device=CUDA):
         _check(layout, order)
         super().__init__(parms, device)
         self.layout = layout
@@ -123,7 +124,7 @@ def add_cbd_error(pt, err_words, n: int):
 
 def make_limbscan_encryptor(parms: Parms, layout: str = "reference",
                             encode_mode: str = "f64",
-                            order: str = "forward", device=None):
+                            order: str = "forward", device=CUDA):
     """A LimbscanEncryptor on `device`, called as the JAX factory's jitted
     function: (values, sk_signed, share_words, err_words) -> dict."""
     check_encode_mode(encode_mode)
@@ -131,20 +132,19 @@ def make_limbscan_encryptor(parms: Parms, layout: str = "reference",
 
 
 def make_c1_expander(parms: Parms, layout: str = "reference",
-                     order: str = "forward", device=None):
+                     order: str = "forward", device=CUDA):
     """expand_c1 bound to its parameters; share_words are moved to
-    `device` when one is given."""
+    `device` (the card unless told otherwise)."""
     _check(layout, order)
 
     def expander(share_words):
-        if device is not None:
-            share_words = share_words.to(device)
+        share_words = share_words.to(device)
         return expand_c1(share_words, parms, layout, order)
     return expander
 
 
 def make_from_pte_encryptor(parms: Parms, layout: str = "reference",
-                            device=None):
+                            device=CUDA):
     """sym_encrypt_from_pte bound to one LimbscanEncryptor on `device`:
     encrypt_pte(pte, sk_signed, share_words, ok=None) -> dict."""
     return LimbscanEncryptor(parms, layout, "forward", device).encrypt_pte

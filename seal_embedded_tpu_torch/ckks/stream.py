@@ -8,9 +8,10 @@ prologue (encode, error draws) runs once, then each limb is one step of
 the port's kernels at (1, B, n):
 
 * sym: the uniform draw for the limb's prime with the sampler counter
-  carried from limb to limb, ``reduce_pte_i64`` and KN fused with the c0
-  epilogue, on a ``LimbscanEncryptor`` whose per-limb buffers are in walk
-  order (reversed for ``order="reverse"``);
+  carried from limb to limb, then KN from pte with the c0 epilogue (pte
+  reduced by the limb's prime as KN loads it), on a ``LimbscanEncryptor``
+  whose per-limb buffers are in walk order (reversed for
+  ``order="reverse"``);
 * asym: KA on the limb's row of the ``AsymEncryptor`` buffers, after its
   encode + ternary + CBD prologue.
 
@@ -110,6 +111,7 @@ def _pipeline(limbs, device: torch.device) -> Iterator[dict]:
     pending = []
     for item in limbs:
         pending.append(fetch.start(*item))
+        del item    # the int64 limb is freed while the next one computes
         if len(pending) > 1:
             yield _fetch(pending.pop(0))
     while pending:
@@ -121,17 +123,19 @@ def _sym_limbs(enc: SymEncryptor, idxs, values, sk_signed, share_words,
     """(prime_idx, q, c0, c1, ok) per limb; enc's per-limb buffers are in
     the walk order of idxs."""
     n = enc.parms.degree
-    _, pte, ok_enc = enc.encode_with_error(values, err_words)
+    pte, ok_enc = enc.encode_with_error(values, err_words)[1:]  # pt freed
     ntt_s = enc.ntt_secret(sk_signed)                      # (L, n)
     counter = sp.counter_zero((values.shape[0],), values.device)
     for j, prime_idx in enumerate(idxs):
         q = enc.moduli[j]
         limb = slice(j, j + 1)
-        pte_red = enc.reduce_pte(pte, limb)
         a, counter, ok_u = sp.sample_uniform(share_words, counter, n, q,
                                              queue_cap=enc.queue_cap)
-        c0 = enc.combine_c0(pte_red, a[None], ntt_s[limb], limb)
+        c0 = enc.c0_from_pte(pte, a[None], ntt_s[limb], limb)
         yield prime_idx, q, c0[0], a, ok_enc & ok_u
+        # Only the fetch's int32 copies outlive the limb, so the next
+        # limb's draw runs with less memory held than the batch's does.
+        del a, c0
 
 
 def _asym_limbs(enc: AsymEncryptor, idxs, values, seed_words):

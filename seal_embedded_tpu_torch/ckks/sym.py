@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import Parms
+from ..convert import CUDA
 from ..io.serialize import intt_fast_root_table
 from ..ops import modarith as ma
 from ..ops import sampling as sp
@@ -93,7 +94,8 @@ def sym_encrypt_batch(values, sk_signed, share_seed_words, err_seed_words,
     return {"c0": c0, "c1": a, "pt": pt, "pte": pte, "ok": ok & ok_u}
 
 
-def make_sym_encryptor(parms: Parms, layout: str = "reference", device=None):
+def make_sym_encryptor(parms: Parms, layout: str = "reference",
+                       device=CUDA):
     """The symmetric encryptor the JAX package caches: the limb-scan
     pipeline, bit-identical to sym_encrypt_batch in the reference layout."""
     return LimbscanEncryptor(parms, layout, device=device)

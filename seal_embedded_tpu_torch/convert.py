@@ -12,6 +12,10 @@ import torch
 
 from .config import Parms
 
+# Where the port's constructors and factories put their tensors unless
+# told otherwise: the card.  Tests on the CPU pass device="cpu".
+CUDA = torch.device("cuda")
+
 
 def parms_from_jax(p) -> Parms:
     """The port's Parms from any object with .degree, .moduli and .scale
@@ -48,12 +52,12 @@ def _u32_tensor(words, device):
                            device=device)
 
 
-def pk_to_device(pk0, pk1, device=None):
+def pk_to_device(pk0, pk1, device=CUDA):
     """Public key u32 (L, n) numpy arrays -> int64 tensors on `device`."""
     return _u32_tensor(pk0, device), _u32_tensor(pk1, device)
 
 
-def asym_state_to_device(values, seed_words, device=None):
+def asym_state_to_device(values, seed_words, device=CUDA):
     """numpy inputs of asym_encrypt_fused -> the port's tensors: values
     float32 (B, vlen), private seed words int64 (B, 16)."""
     return (torch.as_tensor(np.asarray(values, dtype=np.float32),
@@ -61,7 +65,8 @@ def asym_state_to_device(values, seed_words, device=None):
             _u32_tensor(seed_words, device))
 
 
-def state_to_device(values, sk_signed, share_words, err_words, device=None):
+def state_to_device(values, sk_signed, share_words, err_words,
+                    device=CUDA):
     """numpy inputs of sym_encrypt_fused -> the port's tensors: values
     float32 (B, vlen), sk int64 (n,), share/err seed words int64 (B, 16)."""
     return (torch.as_tensor(np.asarray(values, dtype=np.float32),

@@ -1,23 +1,65 @@
-// Kernel KK: SHAKE-256 squeeze of (seed || counter_le8) streams.
+// Kernel KK: SHAKE-256 squeezes of (seed || counter_le8) streams, and the
+// CBD error values drawn from them.
 //
 // Replaces seal_embedded_tpu/ops/kernels/keccak.py: _squeeze_call / _kernel
 // (K1, a multi-block squeeze, the uniform sampler's base draw) and
 // _squeeze_call_1blk / _kernel_1blk (K2, single-block streams that emit
-// only their first `nwords` rate words: the rejection queue and the CBD
-// error).  One kernel computes both.
+// only their first `nwords` rate words: the rejection queues, the ternary
+// blocks and the CBD error).  Every entry reads the caller's int64 seeds
+// and counters (u32 values, low 32 bits used) and writes int64 u32 words
+// or values, so the wrapper copies nothing.
 //
-// Bound on the H100: integer issue.  A permutation is 24 rounds of about
-// 100 64-bit xor/and-not/rotate operations (each two 32-bit instructions)
-// and yields at most 136 bytes, so a stream spends tens of integer
-// instructions per byte it writes: far above the card's ratio of integer
-// throughput to memory bandwidth.
-// Design: one thread per stream keeps its 25-lane state in 64-bit
-// registers (every state index is a compile-time constant after
-// unrolling, so nothing spills to local memory), absorbs the one padded
-// 72-byte block without a permutation of its own, and writes each
-// squeezed block straight out.  The output is stream-major, as the
-// reference wrapper returns it, so neighbouring threads write 136 bytes
-// apart: uncoalesced, and left for a later change to make word-major.
+// Streams.  Seed s (of S) has `per_seed` streams; stream j of seed s
+// absorbs counter c_s + start + j mod 2^64 (the sampler's counter
+// offsets, carried across 2^32 and 2^64 in the 64-bit add), so a queue or
+// a CBD draw passes its (S, 16) seeds and (S, 2) counters as they are,
+// with no expanded seed copy or counter tensor.  per_seed = 1, start = 0
+// is the explicit-counter form.
+//
+// Bound on the H100: integer instruction rate.  One permutation on 32-bit
+// halves needs at least 4,152 logic and funnel-shift instructions (173 a
+// round: theta 75, rho 47, chi 50, iota 1; chip_smoke.py), and the SMs
+// run 64 a clock each: 16.7 Tinstr/s on 132 SMs at 1980 MHz.  So 1024
+// streams x 121 blocks (the uniform base draw at n = 4096) need 0.031
+// ms; their 16.9 MB of u32 words need 0.005 ms at 3.35 TB/s.
+//
+// Multi-block design (nblocks > 1): one warp per stream, lane t = x + 5y
+// of the state in thread t (threads 25..31 of the warp only shuffle).  A
+// stream's 121 x 24 rounds are one dependent chain; with one thread per
+// stream a round is 150 to 200 instructions run one after another
+// (0.25 to 0.3 ms for the chain at 1024 threads on 8 SMs).  Split over
+// 25 threads a round is, per thread:
+//   theta  4 shuffles for the column parity C[x], 2 for C[x-1] and
+//          C[x+1], then 3 xors and a rotate;
+//   rho    one rotate by the lane's own offset (2 selects, 2 funnel
+//          shifts);
+//   pi+chi 3 shuffles: B[x,y], B[x+1,y] and B[x+2,y] straight from the
+//          lanes pi moves there, then one and-not/xor;
+//   iota   one xor with the round constant in thread 0.
+// That is 9 64-bit shuffles (18 SHFL) and about 25 ALU instructions in 3
+// dependent shuffle stages, against about 175 instructions for a whole
+// state in one thread, and 1024 streams fill 1024 warps on all 132 SMs.
+// If an SM runs one warp-wide SHFL a clock, that rate bounds it at
+// 7.75 warps x 18 SHFL = 140 clocks a round per SM, about 0.2 ms; it
+// measured 0.35 to 0.37 ms on the H100 above (about 240 clocks a round),
+// so the latency of the 3 dependent shuffle stages at 2 warps per
+// scheduler is what sets it, 1.8 times faster than a thread per stream.
+// The 17 rate lanes of a squeezed block sit in threads 0..16, so each
+// block is one contiguous 272-byte int64 run per stream: coalesced stores
+// in the stream-major layout the callers read.  A 5-threads-per-stream split
+// (one row each, chi local) needs fewer shuffles per stream but exchanges
+// 5 lanes per thread for theta and pi, needs per-thread lane selects for
+// pi, and leaves 1.3 warps per SM at 1024 streams: latency-bound again.
+//
+// Single-block design (nblocks == 1, and the CBD values): one thread per
+// stream with its 25-lane state in 64-bit registers (every index a
+// compile-time constant after unrolling).  These roles have 8 to 262,144
+// streams, so threads are plenty, and a whole state per thread runs the
+// fewest instructions per permutation: queue and CBD values ran at 0.79
+// to 0.82 of the bound above.  The CBD role turns each stream's first 96 bytes
+// into its 16 error values with __popc (sample.c:311-321) and writes them
+// as int64 through a shared-memory tile, so a block's 128 x 16 values
+// leave as one contiguous run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,11 +74,33 @@ static __constant__ uint64_t kRoundConstants[24] = {
     0x000000000000800AULL, 0x800000008000000AULL, 0x8000000080008081ULL,
     0x8000000000008080ULL, 0x0000000080000001ULL, 0x8000000080008008ULL};
 
+// Rho offsets by lane t = x + 5y (FIPS 202).
+static __constant__ int kRho[25] = {0,  1,  62, 28, 27, 36, 44, 6,  55,
+                                    20, 3,  10, 43, 25, 39, 41, 45, 15,
+                                    21, 8,  18, 2,  61, 56, 14};
+
 namespace {
+
+constexpr int kRateWords = 34;
+constexpr int kCbdBlock = 128;  // streams per block of the CBD role
 
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
   // r is in [1, 63] for every call below.
   return (x << r) | (x >> (64 - r));
+}
+
+// Rotate left by a per-thread amount r in [0, 63]: swap the halves when
+// r >= 32, then two 32-bit funnel shifts by r mod 32.
+__device__ __forceinline__ uint64_t rotl64_var(uint64_t x, int r) {
+  uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+  if (r & 32) {
+    const uint32_t t = lo;
+    lo = hi;
+    hi = t;
+  }
+  const uint32_t nlo = __funnelshift_l(hi, lo, r);
+  const uint32_t nhi = __funnelshift_l(lo, hi, r);
+  return ((uint64_t)nhi << 32) | nlo;
 }
 
 __device__ __forceinline__ void keccak_f1600(uint64_t st[25]) {
@@ -81,53 +145,202 @@ __device__ __forceinline__ void keccak_f1600(uint64_t st[25]) {
   }
 }
 
-__global__ void keccak_squeeze_kernel(const uint32_t* __restrict__ seeds,
-                                      const uint32_t* __restrict__ ctrs,
-                                      uint32_t* __restrict__ out,
-                                      long long nstreams, int nblocks,
-                                      int out_words) {
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= nstreams) return;
+__device__ __forceinline__ uint64_t lane_of(const long long* w) {
+  return (uint64_t)(uint32_t)w[0] | ((uint64_t)(uint32_t)w[1] << 32);
+}
 
-  // Absorb: words 0..15 seed, 16..17 counter, pad word 18 ^= 0x1F and
-  // word 33 ^= 0x80000000 (ops/keccak.py absorb72); lane k = words 2k, 2k+1.
-  uint64_t st[25];
-  const uint32_t* sw = seeds + s * 16;
+// Absorb: words 0..15 seed, 16..17 counter, pad word 18 ^= 0x1F and word
+// 33 ^= 0x80000000 (ops/keccak.py absorb72); lane k = words 2k, 2k+1.
+__device__ __forceinline__ void absorb(uint64_t st[25], const long long* sw,
+                                       uint64_t ctr) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    st[k] = (uint64_t)sw[2 * k] | ((uint64_t)sw[2 * k + 1] << 32);
-  st[8] = (uint64_t)ctrs[2 * s] | ((uint64_t)ctrs[2 * s + 1] << 32);
+  for (int k = 0; k < 8; ++k) st[k] = lane_of(sw + 2 * k);
+  st[8] = ctr;
   st[9] = 0x1FULL;
 #pragma unroll
   for (int k = 10; k < 25; ++k) st[k] = 0;
   st[16] = 0x8000000000000000ULL;
+}
 
-  uint32_t* o = out + s * out_words;
-  for (int b = 0; b < nblocks; ++b) {
-    keccak_f1600(st);
-    const int base = b * 34;
+// Stream g of the (S x per_seed) grid: its seed row and its counter.
+__device__ __forceinline__ uint64_t stream_counter(const long long* ctrs,
+                                                  long long s,
+                                                  unsigned long long off) {
+  return lane_of(ctrs + 2 * s) + off;
+}
+
+// One warp per stream, nblocks permutations, every rate word written.
+__global__ void keccak_lanes_kernel(const long long* __restrict__ seeds,
+                                    const long long* __restrict__ ctrs,
+                                    long long* __restrict__ out,
+                                    long long nseeds, int per_seed,
+                                    unsigned long long start, int nblocks) {
+  const int t = threadIdx.x & 31;
+  const long long g =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (g >= nseeds * per_seed) return;  // whole warps leave together
+  const long long s = g / per_seed;
+  const long long j = g - s * per_seed;
+
+  // This thread's lane (threads 25..31 mirror lane 0 and store nothing).
+  const int me = t < 25 ? t : 0;
+  const int x = me % 5, y = me / 5;
+  uint64_t a;
+  if (me < 8)
+    a = lane_of(seeds + s * 16 + 2 * me);
+  else if (me == 8)
+    a = stream_counter(ctrs, s, start + (unsigned long long)j);
+  else if (me == 9)
+    a = 0x1FULL;
+  else if (me == 16)
+    a = 0x8000000000000000ULL;
+  else
+    a = 0;
+
+  // Shuffle sources, fixed for the whole stream.
+  int col[4];
 #pragma unroll
-    for (int k = 0; k < 17; ++k) {
-      if (base + 2 * k < out_words) o[base + 2 * k] = (uint32_t)st[k];
-      if (base + 2 * k + 1 < out_words)
-        o[base + 2 * k + 1] = (uint32_t)(st[k] >> 32);
+  for (int k = 0; k < 4; ++k) col[k] = x + 5 * ((y + 1 + k) % 5);
+  const int c_prev = (x + 4) % 5 + 5 * y, c_next = (x + 1) % 5 + 5 * y;
+  const int rho = kRho[me];
+  // pi moves lane (x', y') to (y', 2x' + 3y'): B[X, Y] comes from lane
+  // ((X + 3Y) % 5) + 5X.
+  int src[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int X = (x + k) % 5;
+    src[k] = (X + 3 * y) % 5 + 5 * X;
+  }
+  const uint64_t rc_mask = t == 0 ? ~0ULL : 0ULL;
+  const unsigned full = 0xffffffffu;
+
+  const int out_words = nblocks * kRateWords;
+  long long* o = out + g * out_words + 2 * t;
+  for (int b = 0; b < nblocks; ++b) {
+#pragma unroll 1
+    for (int round = 0; round < 24; ++round) {
+      // theta
+      uint64_t c = a;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) c ^= __shfl_sync(full, a, col[k]);
+      const uint64_t cp = __shfl_sync(full, c, c_prev);
+      const uint64_t cn = __shfl_sync(full, c, c_next);
+      a ^= cp ^ rotl64(cn, 1);
+      // rho in place, then pi + chi from the three source lanes
+      a = rotl64_var(a, rho);
+      const uint64_t b0 = __shfl_sync(full, a, src[0]);
+      const uint64_t b1 = __shfl_sync(full, a, src[1]);
+      const uint64_t b2 = __shfl_sync(full, a, src[2]);
+      a = b0 ^ (~b1 & b2);
+      // iota
+      a ^= kRoundConstants[round] & rc_mask;
+    }
+    if (t < 17) {
+      longlong2 w;
+      w.x = (long long)(uint32_t)a;
+      w.y = (long long)(uint32_t)(a >> 32);
+      *reinterpret_cast<longlong2*>(o + b * kRateWords) = w;
     }
   }
 }
 
+// One thread per stream, one permutation, the first nwords words.
+__global__ void keccak_1blk_kernel(const long long* __restrict__ seeds,
+                                   const long long* __restrict__ ctrs,
+                                   long long* __restrict__ out,
+                                   long long nseeds, int per_seed,
+                                   unsigned long long start, int nwords) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= nseeds * per_seed) return;
+  const long long s = g / per_seed;
+  const long long j = g - s * per_seed;
+  uint64_t st[25];
+  absorb(st, seeds + s * 16,
+         stream_counter(ctrs, s, start + (unsigned long long)j));
+  keccak_f1600(st);
+  long long* o = out + g * nwords;
+#pragma unroll
+  for (int k = 0; k < 17; ++k) {
+    if (2 * k < nwords) o[2 * k] = (long long)(uint32_t)st[k];
+    if (2 * k + 1 < nwords) o[2 * k + 1] = (long long)(uint32_t)(st[k] >> 32);
+  }
+}
+
+// CBD error: stream f of seed s (counter c_s + f) gives values 16f ..
+// 16f + 15 of row s.  Value i reads bytes 6i .. 6i + 5 of the stream:
+// hw(b0) + hw(b1) + hw(b2 & 0x1F) - hw(b3) - hw(b4) - hw(b5 & 0x1F), i.e.
+// the popcounts of the 21-bit fields at bits 48i and 48i + 24.
+__global__ void keccak_cbd_kernel(const long long* __restrict__ seeds,
+                                  const long long* __restrict__ ctrs,
+                                  long long* __restrict__ out,
+                                  long long nseeds, int nfills) {
+  __shared__ int tile[kCbdBlock * 17];  // 16 values + 1 pad per stream
+  const long long g0 = (long long)blockIdx.x * kCbdBlock;
+  const long long g = g0 + threadIdx.x;
+  const long long total = nseeds * nfills;
+  if (g < total) {
+    const long long s = g / nfills;
+    const long long f = g - s * nfills;
+    uint64_t st[25];
+    absorb(st, seeds + s * 16, stream_counter(ctrs, s, (uint64_t)f));
+    keccak_f1600(st);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int bit = 48 * i, m = bit >> 6, sh = bit & 63;
+      uint64_t chunk = st[m] >> sh;
+      if (sh > 16) chunk |= st[m + 1] << (64 - sh);
+      const int pos = __popcll(chunk & 0x1FFFFFULL);
+      const int neg = __popcll((chunk >> 24) & 0x1FFFFFULL);
+      tile[threadIdx.x * 17 + i] = pos - neg;
+    }
+  }
+  __syncthreads();
+  // Row s, fill f starts at value 16 (s * nfills + f) = 16 g: the block's
+  // values are one contiguous run.
+  const long long nvals = 16 * (total - g0 < kCbdBlock ? total - g0
+                                                       : (long long)kCbdBlock);
+  for (int e = threadIdx.x; e < nvals; e += kCbdBlock)
+    out[16 * g0 + e] = tile[(e >> 4) * 17 + (e & 15)];
+}
+
 }  // namespace
 
-// seeds (nstreams, 16) and ctrs (nstreams, 2) u32 -> out (nstreams,
-// out_words) u32, out_words = nblocks * 34, or fewer when nblocks == 1.
+// seeds (S, 16), ctrs (S, 2) int64 u32 values -> out (S * per_seed,
+// out_words) int64 u32 words; stream j of seed s absorbs c_s + start + j.
+// out_words = nblocks * 34, or 1..34 when nblocks == 1.
 extern "C" int sek_keccak_squeeze(const void* seeds, const void* ctrs,
-                                  void* out, long long nstreams, int nblocks,
+                                  void* out, long long nseeds, int per_seed,
+                                  unsigned long long start, int nblocks,
                                   int out_words, void* stream) {
+  const long long nstreams = nseeds * per_seed;
   if (nstreams <= 0) return (int)cudaSuccess;
-  const int threads = 128;
-  const long long grid = (nstreams + threads - 1) / threads;
-  keccak_squeeze_kernel<<<(unsigned)grid, threads, 0,
-                          (cudaStream_t)stream>>>(
-      (const uint32_t*)seeds, (const uint32_t*)ctrs, (uint32_t*)out,
-      nstreams, nblocks, out_words);
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long* sd = (const long long*)seeds;
+  const long long* ct = (const long long*)ctrs;
+  long long* o = (long long*)out;
+  if (nblocks > 1) {
+    const int warps = 4;
+    const long long grid = (nstreams + warps - 1) / warps;
+    keccak_lanes_kernel<<<(unsigned)grid, 32 * warps, 0, st>>>(
+        sd, ct, o, nseeds, per_seed, start, nblocks);
+  } else {
+    const int threads = 128;
+    const long long grid = (nstreams + threads - 1) / threads;
+    keccak_1blk_kernel<<<(unsigned)grid, threads, 0, st>>>(
+        sd, ct, o, nseeds, per_seed, start, out_words);
+  }
+  return (int)cudaGetLastError();
+}
+
+// seeds (S, 16), ctrs (S, 2) int64 u32 values -> out (S, 16 * nfills)
+// int64 CBD values in [-21, 21]; stream f of seed s absorbs c_s + f.
+extern "C" int sek_keccak_cbd(const void* seeds, const void* ctrs, void* out,
+                              long long nseeds, int nfills, void* stream) {
+  const long long total = nseeds * nfills;
+  if (total <= 0) return (int)cudaSuccess;
+  const long long grid = (total + kCbdBlock - 1) / kCbdBlock;
+  keccak_cbd_kernel<<<(unsigned)grid, kCbdBlock, 0, (cudaStream_t)stream>>>(
+      (const long long*)seeds, (const long long*)ctrs, (long long*)out,
+      nseeds, nfills);
   return (int)cudaGetLastError();
 }

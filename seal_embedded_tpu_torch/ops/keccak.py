@@ -147,6 +147,45 @@ def shake256_words(seed_words, counters, nblocks: int,
     return words if nwords is None else words[..., :nwords]
 
 
+def counter_offsets(c, offs):
+    """c (..., 2) u64 counter pairs + offs (K,) -> (..., K, 2), carrying
+    into hi and wrapping at 2^64."""
+    lo = c[..., 0, None] + offs
+    hi = (c[..., 1, None] + (lo >> 32)) & MASK32
+    return torch.stack([lo & MASK32, hi], dim=-1)
+
+
+def words_to_bytes(words):
+    """u32 words (..., W) -> byte values (..., 4W), LE order."""
+    out = torch.stack([words & 0xFF, (words >> 8) & 0xFF,
+                       (words >> 16) & 0xFF, (words >> 24) & 0xFF], dim=-1)
+    return out.reshape(words.shape[:-1] + (words.shape[-1] * 4,))
+
+
+def popcount8(b):
+    """Hamming weight of byte values (sample.c:263-269)."""
+    t = b - ((b >> 1) & 0x55)
+    t = (t & 0x33) + ((t >> 2) & 0x33)
+    return (t + (t >> 4)) & 0x0F
+
+
+def cbd_values(seed_words, counter, n: int):
+    """The CBD error values of sample_poly_cbd_generic_prng_16
+    (sample.c:311-321): the plain version of kernel KK's CBD role.
+
+    seed_words: int64 (..., 16); counter: int64 (..., 2).  Fill f absorbs
+    counter + f and gives 16 values from its first 96 bytes, 6 bytes per
+    value.  Returns int64 (..., n)."""
+    nfills = -(-n // 16)
+    fcounters = counter_offsets(counter, torch.arange(nfills,
+                                                      device=counter.device))
+    by = words_to_bytes(shake256_words(seed_words, fcounters, 1, nwords=24))
+    by = by.reshape(by.shape[:-2] + (nfills * 16, 6))[..., :n, :]
+    hw = popcount8(by)
+    return (hw[..., 0] + hw[..., 1] + popcount8(by[..., 2] & 0x1F)
+            - hw[..., 3] - hw[..., 4] - popcount8(by[..., 5] & 0x1F))
+
+
 def words_to_bytes_np(words: np.ndarray) -> bytes:
     """Utility (tests): u32 word stream -> bytes."""
     return np.asarray(words, dtype="<u4").tobytes()

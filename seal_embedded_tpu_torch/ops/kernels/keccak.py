@@ -1,10 +1,15 @@
-"""Wrapper of kernel KK (``csrc/keccak.cu``): batched SHAKE-256 squeeze.
+"""Wrapper of kernel KK (``csrc/keccak.cu``): batched SHAKE-256 squeezes
+and the CBD error values drawn from them.
 
-One kernel serves both TPU kernels it replaces: the multi-block squeeze
-(K1, ``nblocks > 1``) and the single-block streams that keep only their
-first ``nwords`` words (K2).  On CPU tensors the wrapper runs the plain
-version, ``ops.keccak.shake256_words``; on CUDA tensors it launches KK or
-raises.
+``keccak_squeeze`` serves both TPU kernels it replaces: the multi-block
+squeeze (K1, ``nblocks > 1``) and the single-block streams that keep only
+their first ``nwords`` words (K2).  A seed may carry several streams at
+consecutive counters (``per_seed``, ``start``), so queue draws pass their
+seeds and counters as they are.  ``cbd_values`` is KK's CBD role: the
+error values themselves, popcounts included.  Both read and write int64
+tensors as the callers hold them.  On CPU tensors each runs its plain
+version (``ops.keccak.shake256_words``, ``ops.keccak.cbd_values``); on
+CUDA tensors it launches KK or raises.
 """
 
 from __future__ import annotations
@@ -13,44 +18,84 @@ import ctypes
 
 import torch
 
-from ..keccak import MASK32, RATE_WORDS, shake256_words
+from .. import keccak as plain
+from ..keccak import RATE_WORDS
 from . import build
 
 launches = 0
+cbd_launches = 0
 
 
-def keccak_squeeze(seeds, counters, nblocks: int, nwords: int | None = None):
-    """SHAKE-256(seed || counter_le8) for N independent streams.
-
-    seeds: int64 (N, 16) and counters: int64 (N, 2) (lo, hi), u32 values.
-    Returns int64 (N, nblocks * 34) u32 words, or (N, nwords) when
-    nblocks == 1 and nwords is given.
-    """
-    global launches
-    name = "keccak_squeeze"
+def _check_streams(name, seeds, counters):
     build.require(seeds.dtype == torch.int64 and counters.dtype == torch.int64,
                   f"{name}: seeds and counters must be int64")
     build.require(seeds.dim() == 2 and seeds.shape[1] == 16,
-                  f"{name}: seeds must be (N, 16), got {tuple(seeds.shape)}")
+                  f"{name}: seeds must be (S, 16), got {tuple(seeds.shape)}")
     build.require(counters.shape == (seeds.shape[0], 2),
-                  f"{name}: counters must be (N, 2), got "
+                  f"{name}: counters must be (S, 2), got "
                   f"{tuple(counters.shape)}")
+
+
+def keccak_squeeze(seeds, counters, nblocks: int, nwords: int | None = None,
+                   per_seed: int = 1, start: int = 0):
+    """SHAKE-256(seed || counter_le8) for S seeds x per_seed streams.
+
+    seeds: int64 (S, 16) and counters: int64 (S, 2) (lo, hi), u32 values;
+    stream j of seed s absorbs counters[s] + start + j mod 2^64.  Returns
+    int64 (S * per_seed, nblocks * 34) u32 words, stream j of seed s in
+    row s * per_seed + j, or (S * per_seed, nwords) when nblocks == 1 and
+    nwords is given.
+    """
+    global launches
+    name = "keccak_squeeze"
+    _check_streams(name, seeds, counters)
     build.require(nblocks >= 1, f"{name}: nblocks must be >= 1")
     build.require(nwords is None or (nblocks == 1 and 1 <= nwords <= RATE_WORDS),
                   f"{name}: nwords needs nblocks == 1 and 1 <= nwords <= 34")
-    if build.on_cpu(name, seeds, counters):
-        return shake256_words(seeds, counters, nblocks, nwords)
-
-    n_streams = seeds.shape[0]
+    build.require(per_seed >= 1 and 0 <= start and start + per_seed < 2 ** 32,
+                  f"{name}: per_seed >= 1 and 0 <= start < start + per_seed "
+                  f"< 2^32")
+    S = seeds.shape[0]
     out_words = nblocks * RATE_WORDS if nwords is None else nwords
-    s32 = seeds.to(torch.int32)
-    c32 = counters.to(torch.int32)
-    out = torch.empty((n_streams, out_words), dtype=torch.int32,
+    if build.on_cpu(name, seeds, counters):
+        offs = start + torch.arange(per_seed, device=counters.device)
+        words = plain.shake256_words(
+            seeds, plain.counter_offsets(counters, offs), nblocks, nwords)
+        return words.reshape(S * per_seed, out_words)
+
+    out = torch.empty((S * per_seed, out_words), dtype=torch.int64,
                       device=seeds.device)
     fn = build.entry("sek_keccak_squeeze",
                      [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                              ctypes.c_ulonglong, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_void_p])
-    build.check(fn(build.ptr(s32), build.ptr(c32), build.ptr(out), n_streams,
-                   nblocks, out_words, build.stream(out)), name)
+    build.check(fn(build.ptr(seeds), build.ptr(counters), build.ptr(out), S,
+                   per_seed, start, nblocks, out_words, build.stream(out)),
+                name)
     launches += 1
-    return out.to(torch.int64) & MASK32
+    return out
+
+
+def cbd_values(seeds, counters, n: int):
+    """CBD error values (sample.c:311-321) for S streams: fill f of seed s
+    absorbs counters[s] + f and gives values 16f .. 16f + 15.
+
+    seeds: int64 (S, 16), counters: int64 (S, 2) u32 values.  Returns int64
+    (S, n) in [-21, 21].  The kernel needs n to be a multiple of 16.
+    """
+    global cbd_launches
+    name = "cbd_values"
+    _check_streams(name, seeds, counters)
+    build.require(n >= 1, f"{name}: n must be >= 1")
+    if build.on_cpu(name, seeds, counters):
+        return plain.cbd_values(seeds, counters, n)
+
+    build.require(n % 16 == 0, f"{name}: n must be a multiple of 16")
+    S = seeds.shape[0]
+    out = torch.empty((S, n), dtype=torch.int64, device=seeds.device)
+    fn = build.entry("sek_keccak_cbd", [ctypes.c_void_p] * 3
+                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    build.check(fn(build.ptr(seeds), build.ptr(counters), build.ptr(out), S,
+                   n // 16, build.stream(out)), name)
+    cbd_launches += 1
+    return out

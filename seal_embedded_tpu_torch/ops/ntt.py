@@ -1,6 +1,7 @@
 """Batched negacyclic NTT on torch tensors: the plain versions of kernels
-KN and KA (``ops/kernels/ntt.py``), and the inverse, on-the-fly and
-pointwise transforms the JAX package keeps outside its kernels.
+KN (plain and from pte) and KA (``ops/kernels/ntt.py``), and the inverse,
+on-the-fly and pointwise transforms the JAX package keeps outside its
+kernels.
 
 Port of ``seal_embedded_tpu/ops/ntt.py`` (the reference's device/lib/
 ntt.c): each of the log2(n) rounds is one vectorized pairwise op over a
@@ -20,8 +21,8 @@ import torch
 
 from ..config import barrett_quotient, bitrev, find_ntt_root
 from ..io.serialize import intt_root_table
-from .modarith import (MASK32, add_mod, mul_mod, mul_mod_shoup_lazy,
-                       shift_result, sub_mod)
+from .modarith import (MASK32, Mod, add_mod, mul_mod, mul_mod_shoup_lazy,
+                       reduce_pte_i64, shift_result, sub_mod)
 
 
 @lru_cache(maxsize=64)
@@ -91,6 +92,18 @@ def sym_epilogue(v, a, s_op, s_quot, q):
     t = torch.where(t == 0, t, qv - t)
     v = t + v
     return torch.where(v >= qv, v - qv, v)
+
+
+def ntt_sym_from_pte_plain(pte, a, s_op, s_quot, op, quot, q, r0, r1):
+    """The plain version of KN's from-pte entry: c0 = -a * ntt(s) +
+    ntt(reduce_pte(pte)) mod q for every limb.
+
+    pte: int64 (B, n) plaintext + error; a: int64 (L, B, n) in [0, q);
+    s_op, s_quot, op, quot: int64 (L, n); q, r0, r1: int64 (L,), the
+    moduli and the words of floor(2^64 / q).  Returns (L, B, n)."""
+    mod = Mod(q[:, None, None], r0[:, None, None], r1[:, None, None], None)
+    x = reduce_pte_i64(pte[None], mod)
+    return sym_epilogue(ntt_limbs(x, op, quot, q), a, s_op, s_quot, q)
 
 
 def asym_epilogue(nu, other, p_op, p_quot, q):

@@ -22,8 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from .keccak import MASK32, align_seed
-from .kernels.keccak import keccak_squeeze
+from .keccak import MASK32, align_seed, words_to_bytes
+from .kernels.keccak import cbd_values, keccak_squeeze
 from .modarith import _q, as_mod, barrett32
 
 # One-byte refills drawn per 96-byte ternary block (sample.c:228-233):
@@ -74,28 +74,24 @@ def _c_add(c, inc):
     return torch.stack([lo & MASK32, hi], dim=-1)
 
 
-def _c_offsets(c, offs):
-    """c (..., 2) + offs (K,) -> (..., K, 2) queue counter pairs."""
-    lo = c[..., 0, None] + offs
-    hi = (c[..., 1, None] + (lo >> 32)) & MASK32
-    return torch.stack([lo & MASK32, hi], dim=-1)
+def _flat_streams(seed_words, counter):
+    """Seeds (..., 16) aligned to counter (..., 2), flattened into kernel
+    KK's (S, 16) / (S, 2) without copying when the shapes already match."""
+    batch = counter.shape[:-1]
+    seeds = align_seed(seed_words, counter).expand(batch + (16,))
+    return (seeds.reshape(-1, 16).contiguous(),
+            counter.reshape(-1, 2).contiguous())
 
 
-def _squeeze(seed_words, counters, nblocks: int, nwords: int | None = None):
-    """SHAKE words for seeds (S..., 16) broadcast against counters
-    (S..., extra..., 2), flattened into kernel KK's (N, 16) / (N, 2)."""
-    batch = counters.shape[:-1]
-    seeds = align_seed(seed_words, counters).expand(batch + (16,))
-    out = keccak_squeeze(seeds.reshape(-1, 16).contiguous(),
-                         counters.reshape(-1, 2).contiguous(), nblocks, nwords)
-    return out.reshape(batch + (out.shape[-1],))
-
-
-def _words_to_bytes(words):
-    """u32 words (..., W) -> byte values (..., 4W), LE order."""
-    out = torch.stack([words & 0xFF, (words >> 8) & 0xFF,
-                       (words >> 16) & 0xFF, (words >> 24) & 0xFF], dim=-1)
-    return out.reshape(words.shape[:-1] + (words.shape[-1] * 4,))
+def _squeeze(seed_words, counter, nblocks: int, nwords: int | None = None,
+             per_seed: int = 1, start: int = 0):
+    """SHAKE words of seeds (..., 16) with counters (..., 2): (..., words),
+    or with per_seed > 1 the streams at counter + start + j, j < per_seed,
+    as (..., per_seed, words)."""
+    out = keccak_squeeze(*_flat_streams(seed_words, counter), nblocks,
+                         nwords, per_seed, start)
+    extra = (per_seed,) if per_seed > 1 else ()
+    return out.reshape(counter.shape[:-1] + extra + (out.shape[-1],))
 
 
 # Chunk width of the rejected-position search for wide rows (a per-chunk
@@ -182,8 +178,8 @@ def sample_uniform(seed_words, counter, n: int, q,
     rejected = base >= m.max_multiple
 
     cap = queue_cap if queue_cap is not None else uniform_queue_cap(n)
-    offs = 1 + torch.arange(cap, device=counter.device)
-    qvals = _squeeze(seed_words, _c_offsets(counter, offs), 1, nwords=1)[..., 0]
+    qvals = _squeeze(seed_words, counter, 1, nwords=1, per_seed=cap,
+                     start=1)[..., 0]
     qacc = qvals < m.max_multiple
 
     final, consumed, ok = _rank_select(base, rejected, qvals, qacc)
@@ -219,12 +215,12 @@ def _ternary_block(seed_words, counter, count_here: int):
     bytes >= 0xFE are redrawn from one-byte refills at counters c+1, c+2,
     ...  Returns ({-1, 0, 1} int64 (..., 96), next_counter, ok)."""
     dev = counter.device
-    base_bytes = _words_to_bytes(_squeeze(seed_words, counter, 1, nwords=24))
+    base_bytes = words_to_bytes(_squeeze(seed_words, counter, 1, nwords=24))
     rejected = base_bytes >= 0xFE
 
-    offs = 1 + torch.arange(TERNARY_QUEUE_CAP, device=dev)
-    qvals = _squeeze(seed_words, _c_offsets(counter, offs), 1,
-                     nwords=1)[..., 0] & 0xFF   # first byte of each refill
+    qvals = _squeeze(seed_words, counter, 1, nwords=1,
+                     per_seed=TERNARY_QUEUE_CAP,
+                     start=1)[..., 0] & 0xFF   # first byte of each refill
     qacc = qvals < 0xFE
 
     # The reference touches only the first count_here bytes of a tail block
@@ -263,24 +259,13 @@ def ternary_to_modq_any(signed, q):
 ternary_to_modq = ternary_to_modq_any
 
 
-def _popcount8(b):
-    """Hamming weight of byte values (sample.c:263-269)."""
-    t = b - ((b >> 1) & 0x55)
-    t = (t & 0x33) + ((t >> 2) & 0x33)
-    return (t + (t >> 4)) & 0x0F
-
-
 def sample_cbd(seed_words, counter, n: int):
     """sample_poly_cbd_generic_prng_16 (sample.c:311-321), batched.
 
-    n/16 fills of 96 bytes each, deterministic counters.  Returns
-    (err int64 (..., n) in [-63, 63], next_counter).
+    n/16 fills of 96 bytes each at counters counter, counter + 1, ...,
+    through KK's CBD role (its plain version is ``ops.keccak.cbd_values``).
+    Returns (err int64 (..., n) in [-21, 21], next_counter).
     """
-    nfills = -(-n // 16)
-    fcounters = _c_offsets(counter, torch.arange(nfills, device=counter.device))
-    by = _words_to_bytes(_squeeze(seed_words, fcounters, 1, nwords=24))
-    by = by.reshape(by.shape[:-2] + (nfills * 16, 6))[..., :n, :]
-    hw = _popcount8(by)
-    val = (hw[..., 0] + hw[..., 1] + _popcount8(by[..., 2] & 0x1F)
-           - hw[..., 3] - hw[..., 4] - _popcount8(by[..., 5] & 0x1F))
-    return val, _c_add(counter, nfills)
+    err = cbd_values(*_flat_streams(seed_words, counter), n)
+    return (err.reshape(counter.shape[:-1] + (n,)),
+            _c_add(counter, -(-n // 16)))

@@ -91,8 +91,8 @@ def jax_asym_case():
 @pytest.mark.parametrize("entry", ["asym_encrypt_fused", "asym_encrypt_batch"])
 def test_asym_encrypt_vs_jax(jax_asym_case, entry):
     (values, pk0, pk1, seeds), want = jax_asym_case
-    v, s = asym_state_to_device(values, seeds)
-    got = getattr(tasym, entry)(v, *pk_to_device(pk0, pk1), s,
+    v, s = asym_state_to_device(values, seeds, device="cpu")
+    got = getattr(tasym, entry)(v, *pk_to_device(pk0, pk1, device="cpu"), s,
                                 parms_from_jax(P1K), encode_mode="f64")
     assert bool(np.asarray(want["ok"]).all())
     assert np.array_equal(got["ok"].numpy(), np.asarray(want["ok"]))
@@ -104,15 +104,15 @@ def test_asym_encrypt_vs_jax(jax_asym_case, entry):
 def test_asym_encryptor_buffers_and_modes(jax_asym_case):
     (values, pk0, pk1, seeds), _ = jax_asym_case
     parms = parms_from_jax(P1K)
-    t0, t1 = pk_to_device(pk0, pk1)
-    enc = tasym.AsymEncryptor(parms, t0, t1)
+    t0, t1 = pk_to_device(pk0, pk1, device="cpu")
+    enc = tasym.AsymEncryptor(parms, t0, t1, device="cpu")
     q = torch.tensor(P1K.moduli, dtype=torch.int64)[:, None]
     assert torch.equal(enc.pk0, t0) and torch.equal(enc.pk1, t1)
     assert torch.equal(enc.pk0_quot, tma.shoup_quotient(t0, q))
     assert torch.equal(enc.pk1_quot, tma.shoup_quotient(t1, q))
     assert {"pk0", "pk0_quot", "pk1", "pk1_quot", "ntt_op"} <= dict(
         enc.named_buffers()).keys()
-    v, s = asym_state_to_device(values, seeds)
+    v, s = asym_state_to_device(values, seeds, device="cpu")
     with pytest.raises(ValueError):
         tasym.asym_encrypt_fused(v, t0, t1, s, parms, encode_mode="fast")
 
@@ -139,7 +139,7 @@ def test_asym_golden(n, nprimes):
 
     values, seeds = asym_state_to_device(
         np.stack([d[f"v_{t}"] for t in range(G)]),
-        np.tile(jkc.seed_to_words(seed_bytes(3)), (G, 1)))
+        np.tile(jkc.seed_to_words(seed_bytes(3)), (G, 1)), device="cpu")
     u, ctr, ok = tsp.sample_ternary(seeds, tsp.counter_zero((G,)), n)
     _, ctr = tsp.sample_cbd(seeds, ctr, n)
     e1, _ = tsp.sample_cbd(seeds, ctr, n)
@@ -149,7 +149,7 @@ def test_asym_golden(n, nprimes):
                               unpack_ternary(d[f"u_packed_{t}"], n)), t
         assert np.array_equal(e1[t].numpy(), d[f"e1_{t}"]), t
 
-    out = tasym.AsymEncryptor(parms, pk0, pk1)(values, seeds)
+    out = tasym.AsymEncryptor(parms, pk0, pk1, device="cpu")(values, seeds)
     assert out["ok"].all()
     for t in range(G):
         assert np.array_equal(out["pt"][t].numpy(), d[f"pt_{t}"]), t
@@ -169,9 +169,10 @@ def test_asym_convert_helpers():
                      for i in range(4096)], dtype=np.int32)
     assert np.array_equal(unpack_ternary(d["u_packed_0"], 4096), want)
     pk0 = np.stack([d[f"pk0_{i}"] for i in range(3)])
-    t0, t1 = pk_to_device(pk0, pk0)
+    t0, t1 = pk_to_device(pk0, pk0, device="cpu")
     assert t0.dtype == torch.int64 and t0.shape == (3, 4096)
     assert np.array_equal(t1.numpy(), pk0.astype(np.int64))
-    v, s = asym_state_to_device(np.zeros((2, 8)), np.full((2, 16), 2 ** 32 - 1))
+    v, s = asym_state_to_device(np.zeros((2, 8)),
+                                np.full((2, 16), 2 ** 32 - 1), device="cpu")
     assert v.dtype == torch.float32 and s.dtype == torch.int64
     assert int(s.max()) == 2 ** 32 - 1

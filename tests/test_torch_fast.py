@@ -44,7 +44,7 @@ def test_sym_encrypt_matches_jax_fused():
     values, sk, share, err = _inputs(3, P1K.degree)
     want = jax.jit(partial(jax_sym, parms=P1K, encode_mode="f64"))(
         *(jnp.asarray(a) for a in (values, sk, share, err)))
-    got = sym_encrypt_fused(*state_to_device(values, sk, share, err),
+    got = sym_encrypt_fused(*state_to_device(values, sk, share, err, device="cpu"),
                             parms_from_jax(P1K), encode_mode="f64")
     assert bool(np.asarray(want["ok"]).all())
     assert np.array_equal(got["ok"].numpy(), np.asarray(want["ok"]))
@@ -61,8 +61,8 @@ def test_sym_encryptor_golden(n, nprimes):
     sk = unpack_sk(data["sk_packed_0"], n)
     share = np.tile(jkc.seed_to_words(seed_bytes(2)), (G, 1))
     err = np.tile(jkc.seed_to_words(seed_bytes(3)), (G, 1))
-    out = SymEncryptor(tcfg.default_parms(n, nprimes))(
-        *state_to_device(vs, sk, share, err))
+    out = SymEncryptor(tcfg.default_parms(n, nprimes), device="cpu")(
+        *state_to_device(vs, sk, share, err, device="cpu"))
     assert out["ok"].all()
     for t in range(G):
         assert np.array_equal(out["pt"][t].numpy(), data[f"pt_{t}"]), t
@@ -101,7 +101,8 @@ def test_convert_helpers():
     assert isinstance(p, tcfg.Parms)
     assert dataclasses.astuple(p) == dataclasses.astuple(P1K)
     values, sk, share, err = _inputs(2, 64)
-    tv, tsk, tshare, terr = state_to_device(values, sk, share, err)
+    tv, tsk, tshare, terr = state_to_device(values, sk, share, err,
+                                             device="cpu")
     assert tv.dtype == torch.float32 and tsk.dtype == torch.int64
     assert terr.dtype == torch.int64
     assert np.array_equal(tshare.numpy(), share.astype(np.int64))

@@ -10,7 +10,8 @@ import torch
 
 from seal_embedded_tpu.ops import keccak as jkc
 from seal_embedded_tpu_torch.ops import keccak as tkc
-from seal_embedded_tpu_torch.ops.kernels.keccak import keccak_squeeze
+from seal_embedded_tpu_torch.ops.kernels.keccak import (cbd_values,
+                                                        keccak_squeeze)
 
 torch.set_num_threads(2)
 
@@ -100,3 +101,49 @@ def test_kernel_wrapper_cpu_path_and_checks():
         keccak_squeeze(s, c, 2, nwords=5)
     with pytest.raises(ValueError):
         keccak_squeeze(s.to("meta"), c.to("meta"), 1)
+
+
+@pytest.mark.parametrize("nblocks,nwords,per_seed,start", [
+    (1, 1, 160, 1),     # the uniform queue at n = 4096
+    (1, 1, 8, 1),       # the ternary refills
+    (1, 24, 256, 0),    # the CBD fills at n = 4096
+    (3, None, 2, 5)])
+def test_seed_broadcast_vs_explicit_counters(nblocks, nwords, per_seed,
+                                             start):
+    """KK's seed-broadcast form (per_seed streams per seed at counter +
+    start + j) against the explicit-counter form on expanded seeds and
+    counters, with counters whose offsets carry across 2^32 and wrap at
+    2^64; and the explicit form against the JAX squeeze."""
+    seeds, ctr = _inputs(np.random.default_rng(per_seed + start), (6,))
+    ctr[4] = [2 ** 32 - start - per_seed // 2, 2 ** 32 - 1]  # carry, wrap
+    s, c = torch.as_tensor(seeds), torch.as_tensor(ctr)
+    got = keccak_squeeze(s, c, nblocks, nwords, per_seed=per_seed,
+                         start=start)
+    offs = torch.arange(start, start + per_seed)
+    ec = tkc.counter_offsets(c, offs).reshape(-1, 2)
+    es = s[:, None, :].expand(6, per_seed, 16).reshape(-1, 16)
+    want = keccak_squeeze(es, ec, nblocks, nwords)
+    words = nblocks * 34 if nwords is None else nwords
+    assert got.shape == (6 * per_seed, words)
+    assert torch.equal(got, want)
+    jw, _ = _both(es.numpy()[:64], ec.numpy()[:64], nblocks, nwords)
+    assert np.array_equal(want[:64].numpy(), jw)
+    # Row 4's streams cross 2^32 and then 2^64.
+    assert set(ec[4 * per_seed:5 * per_seed, 1].tolist()) == {2 ** 32 - 1, 0}
+
+
+def test_cbd_values_wrapper_cpu_path_and_checks():
+    """KK's CBD role on CPU tensors is its plain version; argument checks."""
+    seeds, ctr = _inputs(np.random.default_rng(11), (3,))
+    s, c = torch.as_tensor(seeds), torch.as_tensor(ctr)
+    got = cbd_values(s, c, 64)
+    assert got.shape == (3, 64) and torch.equal(got, tkc.cbd_values(s, c, 64))
+    assert int(got.abs().max()) <= 21
+    with pytest.raises(ValueError):
+        cbd_values(s.to(torch.int32), c, 64)
+    with pytest.raises(ValueError):
+        cbd_values(s, c[:2], 64)
+    with pytest.raises(ValueError):
+        keccak_squeeze(s, c, 1, 1, per_seed=0)
+    with pytest.raises(ValueError):
+        keccak_squeeze(s, c, 1, 1, per_seed=4, start=2 ** 32 - 2)

@@ -64,8 +64,9 @@ def _jax_limbscan(layout, order):
 def test_limbscan_vs_jax(layout, order):
     want = _jax_limbscan(layout, order)
     assert bool(want["ok"].all())
-    enc = tlw.make_limbscan_encryptor(parms_from_jax(P), layout, "f64", order)
-    got = enc(*state_to_device(*_inputs(2, P.degree, seed=1)))
+    enc = tlw.make_limbscan_encryptor(parms_from_jax(P), layout, "f64", order,
+                                      device="cpu")
+    got = enc(*state_to_device(*_inputs(2, P.degree, seed=1), device="cpu"))
     _assert_out_equal(got, want)
     if order == "reverse":
         assert enc.moduli == tuple(reversed(P.moduli))
@@ -79,7 +80,7 @@ def test_expand_c1_reference_vs_jax():
     for order in ("forward", "reverse"):
         want_c1, want_ok = jlw.make_c1_expander(P, "reference", order)(
             jnp.asarray(share))
-        got_c1, got_ok = tlw.make_c1_expander(pt, "reference", order)(
+        got_c1, got_ok = tlw.make_c1_expander(pt, "reference", order, device="cpu")(
             torch.as_tensor(share.astype(np.int64)))
         assert np.array_equal(got_c1.numpy(), _np(want_c1)), order
         assert np.array_equal(got_ok.numpy(), np.asarray(want_ok)), order
@@ -129,7 +130,7 @@ def test_from_pte_vs_jax():
         ok_in=jnp.asarray(ok_in))
     args = (got_pte, torch.as_tensor(sk.astype(np.int64)),
             torch.as_tensor(share.astype(np.int64)))
-    got = tlw.make_from_pte_encryptor(parms_from_jax(P), "reference")(
+    got = tlw.make_from_pte_encryptor(parms_from_jax(P), "reference", device="cpu")(
         *args, torch.as_tensor(ok_in))
     _assert_out_equal(got, want, ("c0", "c1", "pte"))
     direct = tlw.sym_encrypt_from_pte(*args, parms_from_jax(P))
@@ -139,11 +140,11 @@ def test_from_pte_vs_jax():
 def test_limbscan_argument_checks():
     pt = parms_from_jax(P)
     with pytest.raises(ValueError):
-        tlw.LimbscanEncryptor(pt, layout="sharded")
+        tlw.LimbscanEncryptor(pt, layout="sharded", device="cpu")
     with pytest.raises(ValueError):
-        tlw.LimbscanEncryptor(pt, order="backward")
+        tlw.LimbscanEncryptor(pt, order="backward", device="cpu")
     with pytest.raises(ValueError):
-        tlw.make_limbscan_encryptor(pt, encode_mode="f16")
+        tlw.make_limbscan_encryptor(pt, encode_mode="f16", device="cpu")
     with pytest.raises(ValueError):
         tlw.expand_c1(torch.zeros((1, 16), dtype=torch.int64), pt, "x")
 
@@ -159,8 +160,8 @@ def test_limbscan_golden(n, nprimes):
     share = np.tile(jkc.seed_to_words(seed_bytes(2)), (G, 1))
     err = np.tile(jkc.seed_to_words(seed_bytes(3)), (G, 1))
     parms = tcfg.default_parms(n, nprimes)
-    args = state_to_device(vs, sk, share, err)
-    out = tlw.make_limbscan_encryptor(parms, "reference", "sf")(*args)
+    args = state_to_device(vs, sk, share, err, device="cpu")
+    out = tlw.make_limbscan_encryptor(parms, "reference", "sf", device="cpu")(*args)
     assert out["ok"].all()
     c1, ok = tlw.expand_c1(args[2], parms)
     assert bool(ok.all()) and torch.equal(c1, out["c1"])
@@ -172,6 +173,6 @@ def test_limbscan_golden(n, nprimes):
                                   data[f"c0_{nprimes * t + i}"]), (t, i)
             assert np.array_equal(out["c1"][i, t].numpy(),
                                   data[f"c1_{nprimes * t + i}"]), (t, i)
-    fused = SymEncryptor(parms)(*args)
+    fused = SymEncryptor(parms, device="cpu")(*args)
     for k in ("c0", "c1", "pt", "pte", "ok"):
         assert torch.equal(out[k], fused[k]), k

@@ -1,6 +1,7 @@
 """Port's plain NTT (the CPU path of kernel KN) vs seal_embedded_tpu.ops.ntt,
-its fused symmetric epilogue vs the JAX fused-sym Pallas kernel, and the
-plain version of kernel KA vs the JAX fused-asym Pallas kernel (K6), both
+its fused symmetric epilogue and its fused entry from the int64 pte vs
+the JAX fused-sym Pallas kernel (after the JAX reduce_pte_i64), and the
+plain version of kernel KA vs the JAX fused-asym Pallas kernel (K6), the
 kernels in interpret mode, bit for bit."""
 
 import jax
@@ -10,12 +11,14 @@ import pytest
 import torch
 
 from seal_embedded_tpu.config import PRIMES_27BIT, default_parms
+from seal_embedded_tpu.ops import modarith as jma
 from seal_embedded_tpu.ops import ntt as jntt
 from seal_embedded_tpu.ops.kernels.ntt import (ntt_coeff_major_fused_asym,
                                                ntt_coeff_major_fused_sym)
 from seal_embedded_tpu_torch.ops import modarith as tma
 from seal_embedded_tpu_torch.ops import ntt as tntt
-from seal_embedded_tpu_torch.ops.kernels.ntt import ntt_asym, ntt_fwd
+from seal_embedded_tpu_torch.ops.kernels.ntt import (ntt_asym, ntt_fwd,
+                                                     ntt_sym_from_pte)
 
 torch.set_num_threads(2)
 
@@ -60,28 +63,120 @@ def test_ntt_limbs_and_wrapper_vs_jax():
 
 def test_fused_sym_epilogue_vs_pallas_interpret():
     """c0 = -a * ntt(s) + ntt(x) at L=2, n=256, B=128, against the JAX
-    fused-sym kernel (coefficient-major (L, n, B)) in interpret mode."""
+    fused-sym kernel (coefficient-major (L, n, B)) in interpret mode.  x
+    is nonnegative and below every q, so KN's from-pte entry takes it as
+    its pte unchanged."""
     moduli = tuple(int(q) for q in PRIMES_27BIT[:2])
     L, n, B = 2, 256, 128
     rng = np.random.default_rng(0)
-    x = np.stack([rng.integers(0, q, (n, B), dtype=np.int64) for q in moduli])
+    x = rng.integers(0, min(moduli), (n, B), dtype=np.int64)
     a = np.stack([rng.integers(0, q, (n, B), dtype=np.int64) for q in moduli])
     s = np.stack([rng.integers(0, q, n, dtype=np.int64) for q in moduli])
     want = np.asarray(ntt_coeff_major_fused_sym(
-        jnp.asarray(x.astype(np.uint32)), jnp.asarray(a.astype(np.uint32)),
-        jnp.asarray(s.astype(np.uint32)), moduli, interpret=True))
+        jnp.asarray(np.stack([x] * L).astype(np.uint32)),
+        jnp.asarray(a.astype(np.uint32)), jnp.asarray(s.astype(np.uint32)),
+        moduli, interpret=True))
 
     op, quot, q = _tables(n, moduli)
-    xt = torch.as_tensor(x).transpose(1, 2).contiguous()      # (L, B, n)
-    at = torch.as_tensor(a).transpose(1, 2).contiguous()
+    mods = tma.modpack(moduli)
+    pte = torch.as_tensor(x.T.copy())                           # (B, n)
+    at = torch.as_tensor(a).transpose(1, 2).contiguous()        # (L, B, n)
     s_op = torch.as_tensor(s)
     s_quot = tma.shoup_quotient(s_op, q[:, None])
-    plain = tntt.sym_epilogue(tntt.ntt_limbs(xt, op, quot, q), at, s_op,
-                              s_quot, q)
-    wrapped = ntt_fwd(xt, op, quot, q, a=at, s_op=s_op, s_quot=s_quot)
+    plain = tntt.sym_epilogue(
+        tntt.ntt_limbs(pte.expand(L, B, n), op, quot, q), at, s_op, s_quot,
+        q)
+    wrapped = ntt_sym_from_pte(pte, at, s_op, s_quot, op, quot, q, mods.r0,
+                               mods.r1)
     assert torch.equal(plain, wrapped)
     assert np.array_equal(plain.transpose(1, 2).numpy(),
                           want.astype(np.int64))
+
+
+def edge_pte(rng, moduli, B, n):
+    """int64 (B, n) plaintext + error: random values of every magnitude,
+    with 0, +-k q of each modulus, +-(2^63 - 1), INT64_MIN and the
+    magnitudes at the encode's overflow edge (the largest doubles below
+    2^63, 2^62, 2^53 + 1) at the head of the rows."""
+    big = np.iinfo(np.int64)
+    x = rng.integers(big.min, big.max, (B, n), dtype=np.int64,
+                     endpoint=True)
+    x[:, n // 2:] >>= rng.integers(0, 63, (B, n - n // 2))
+    edges = [0, 1, -1, big.max, -big.max, big.min, 2 ** 63 - 1024,
+             -(2 ** 63 - 1024), 2 ** 62, -(2 ** 62), 2 ** 53 + 1,
+             -(2 ** 53 + 1)]
+    for q in moduli:
+        for k in (1, 2, 12345, (2 ** 63 - 1) // q):
+            edges += [k * q, -k * q, k * q + 1, -k * q - 1]
+    flat = x.reshape(-1)
+    flat[:len(edges)] = edges
+    return x
+
+
+def _from_pte_case(moduli, B, n, seed):
+    rng = np.random.default_rng(seed)
+    pte = edge_pte(rng, moduli, B, n)
+    a = np.stack([rng.integers(0, q, (B, n), dtype=np.int64) for q in moduli])
+    s = np.stack([rng.integers(0, q, n, dtype=np.int64) for q in moduli])
+    return pte, a, s
+
+
+def _from_pte_port(pte, a, s, moduli):
+    """The port's fused entry on CPU tensors (its plain version)."""
+    n = pte.shape[1]
+    op, quot, q = _tables(n, moduli)
+    mods = tma.modpack(moduli)
+    s_op = torch.as_tensor(s)
+    s_quot = tma.shoup_quotient(s_op, q[:, None])
+    return ntt_sym_from_pte(torch.as_tensor(pte), torch.as_tensor(a), s_op,
+                            s_quot, op, quot, q, mods.r0, mods.r1)
+
+
+def _from_pte_jax(pte, a, s, moduli):
+    """JAX reduce_pte_i64 per limb, then the fused-sym Pallas kernel in
+    interpret mode, coefficient-major; returned as (L, B, n)."""
+    red = np.stack([np.asarray(jma.reduce_pte_i64(jnp.asarray(pte), q))
+                    for q in moduli])                            # (L, B, n)
+    want = ntt_coeff_major_fused_sym(
+        jnp.asarray(red.transpose(0, 2, 1).astype(np.uint32)),
+        jnp.asarray(a.transpose(0, 2, 1).astype(np.uint32)),
+        jnp.asarray(s.astype(np.uint32)), moduli, interpret=True)
+    return np.asarray(want).astype(np.int64).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("nprimes", [1, 2])
+def test_ntt_sym_from_pte_vs_pallas_interpret(nprimes):
+    """c0 = -a * ntt(s) + ntt(reduce_pte(pte)) on edge pte values, at
+    (L, B, n) = (1 or 2, 128, 256): the plain version of KN's from-pte
+    entry against the JAX reduce_pte_i64 + fused-sym kernel, and against
+    reduce_pte_i64, the unfused wrapper and the epilogue."""
+    moduli = tuple(int(q) for q in PRIMES_27BIT[:nprimes])
+    pte, a, s = _from_pte_case(moduli, 128, 256, 20 + nprimes)
+    got = _from_pte_port(pte, a, s, moduli)
+    assert np.array_equal(got.numpy(), _from_pte_jax(pte, a, s, moduli))
+    op, quot, q = _tables(256, moduli)
+    mods = tma.modpack(moduli)
+    red = tma.reduce_pte_i64(torch.as_tensor(pte)[None],
+                             tma.Mod(*(f[:, None, None] for f in mods)))
+    assert bool((red == q[:, None, None]).any())      # the x < 0 quirk ran
+    s_op = torch.as_tensor(s)
+    assert torch.equal(got, tntt.sym_epilogue(
+        ntt_fwd(red, op, quot, q), torch.as_tensor(a), s_op,
+        tma.shoup_quotient(s_op, q[:, None]), q))
+
+
+def test_ntt_sym_from_pte_wrapper_checks():
+    moduli = tuple(int(q) for q in PRIMES_27BIT[:2])
+    pte, a, s = (torch.as_tensor(t) for t in _from_pte_case(moduli, 2, 64, 3))
+    op, quot, q = _tables(64, moduli)
+    mods = tma.modpack(moduli)
+    args = [pte, a, s, s, op, quot, q, mods.r0, mods.r1]
+    ntt_sym_from_pte(*args)
+    for i, bad in ((0, pte[:1]), (0, pte.to(torch.int32)), (1, a[:, :, :32]),
+                   (2, s[:1]), (7, mods.r0[:1]),
+                   (1, a.transpose(1, 2).contiguous().transpose(1, 2))):
+        with pytest.raises(ValueError):
+            ntt_sym_from_pte(*args[:i], bad, *args[i + 1:])
 
 
 def test_ntt_wrapper_checks():
@@ -92,7 +187,7 @@ def test_ntt_wrapper_checks():
     with pytest.raises(ValueError):
         ntt_fwd(x[:, :, :128], op, quot, q)
     with pytest.raises(ValueError):
-        ntt_fwd(x, op, quot, q, s_op=op)
+        ntt_fwd(x, op[:, :128], quot, q)
     with pytest.raises(ValueError):
         ntt_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), op, quot, q)
 

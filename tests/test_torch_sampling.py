@@ -10,6 +10,7 @@ import torch
 
 from seal_embedded_tpu.config import PRIMES_27BIT, PRIMES_30BIT
 from seal_embedded_tpu.ops import sampling as jsp
+from seal_embedded_tpu_torch.ops import keccak as tkc
 from seal_embedded_tpu_torch.ops import sampling as tsp
 
 torch.set_num_threads(2)
@@ -59,6 +60,24 @@ def test_sample_cbd_vs_jax():
     assert err.abs().max() <= 63
 
 
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_cbd_values_role_vs_jax(n):
+    """sample_cbd through KK's CBD-values wrapper (its plain version here),
+    and the wrapper called directly, against the JAX sample_cbd, with
+    counters at 2^32 - 1 and 2^64 - 1 so the fill counters carry."""
+    from seal_embedded_tpu_torch.ops.kernels.keccak import cbd_values
+
+    seeds, ctr = _seeds_counters(np.random.default_rng(n + 1), 4)
+    ctr[1] = [2 ** 32 - 1, 0]
+    werr, wnext = jsp.sample_cbd(_j(seeds), _j(ctr), n)
+    s, c = torch.as_tensor(seeds), torch.as_tensor(ctr)
+    err, nxt = tsp.sample_cbd(s, c, n)
+    assert np.array_equal(err.numpy(), _np(werr))
+    assert np.array_equal(nxt.numpy(), _np(wnext))
+    assert torch.equal(cbd_values(s, c, n), err)
+    assert nxt[-1, 1] == 0 and nxt[1, 1] == 1
+
+
 def test_counter_offsets_carry_vs_jax():
     rng = np.random.default_rng(2)
     ctr = rng.integers(0, 2 ** 32, (4, 2), dtype=np.int64)
@@ -67,7 +86,8 @@ def test_counter_offsets_carry_vs_jax():
     offs = np.arange(5, dtype=np.int64)
     inc = np.array([1, 2, 3, 2 ** 32 - 1], dtype=np.int64)
     assert np.array_equal(
-        tsp._c_offsets(torch.as_tensor(ctr), torch.as_tensor(offs)).numpy(),
+        tkc.counter_offsets(torch.as_tensor(ctr),
+                            torch.as_tensor(offs)).numpy(),
         _np(jsp._c_offsets(_j(ctr), _j(offs))))
     assert np.array_equal(
         tsp._c_add(torch.as_tensor(ctr), torch.as_tensor(inc)).numpy(),
@@ -145,8 +165,8 @@ def test_ternary_block_vs_jax(count_here):
     """One block, with rejected bytes past count_here in some row, which
     a tail block must leave unreplaced and unconsumed."""
     seeds, ctr = _ternary_state(16, count_here)
-    by = tsp._words_to_bytes(tsp._squeeze(torch.as_tensor(seeds),
-                                          torch.as_tensor(ctr), 1, nwords=24))
+    by = tkc.words_to_bytes(tsp._squeeze(torch.as_tensor(seeds),
+                                         torch.as_tensor(ctr), 1, nwords=24))
     assert bool((by[:, 32:] >= 0xFE).any())
     wvals, wnext, wok = jsp._ternary_block(_j(seeds), _j(ctr), count_here)
     vals, nxt, ok = tsp._ternary_block(torch.as_tensor(seeds),

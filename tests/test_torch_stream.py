@@ -14,6 +14,8 @@ from seal_embedded_tpu.ckks import stream as jstream
 from seal_embedded_tpu.ckks.asym import gen_pk_batch
 from seal_embedded_tpu.config import PRIMES_27BIT, Parms
 from seal_embedded_tpu.io import network as jnet
+from seal_embedded_tpu.ops import modarith as jma
+from seal_embedded_tpu.ops.kernels.ntt import ntt_coeff_major_fused_sym
 from seal_embedded_tpu.ops.keccak import seed_to_words
 from seal_embedded_tpu_torch.ckks import stream as tstream
 from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor
@@ -73,13 +75,13 @@ def test_sym_encrypt_stream_vs_jax(order):
     want = list(jstream.sym_encrypt_stream(
         *(jnp.asarray(a) for a in (values, sk, share, err)), P, "f64", order))
     got = list(tstream.sym_encrypt_stream(
-        *state_to_device(values, sk, share, err), parms_from_jax(P), "f64",
+        *state_to_device(values, sk, share, err, device="cpu"), parms_from_jax(P), "f64",
         order))
     _check_limbs(got, want, order)
     assert all(l["wait_ms"] == 0.0 for l in got)
     # The limb-scan encryptor of the same walk gives the same limbs.
-    ref = LimbscanEncryptor(parms_from_jax(P), "reference", order)(
-        *state_to_device(values, sk, share, err))
+    ref = LimbscanEncryptor(parms_from_jax(P), "reference", order, device="cpu")(
+        *state_to_device(values, sk, share, err, device="cpu"))
     for j, l in enumerate(got):
         assert np.array_equal(l["c0"], ref["c0"][j].numpy())
 
@@ -91,12 +93,12 @@ def test_asym_encrypt_stream_vs_jax(order):
     want = list(jstream.asym_encrypt_stream(
         jnp.asarray(values), jnp.asarray(pk0), jnp.asarray(pk1),
         jnp.asarray(err), P, "f64", order))
-    tpk = pk_to_device(pk0, pk1)
+    tpk = pk_to_device(pk0, pk1, device="cpu")
     got = list(tstream.asym_encrypt_stream(
         torch.as_tensor(values), *tpk, torch.as_tensor(err.astype(np.int64)),
         parms_from_jax(P), "f64", order))
     _check_limbs(got, want, order)
-    batch = AsymEncryptor(parms_from_jax(P), *tpk)(
+    batch = AsymEncryptor(parms_from_jax(P), *tpk, device="cpu")(
         torch.as_tensor(values), torch.as_tensor(err.astype(np.int64)))
     for l in got:
         assert np.array_equal(l["c1"], batch["c1"][l["prime_idx"]].numpy())
@@ -123,6 +125,37 @@ def test_se_encrypt_streaming_sent_bytes_vs_jax(kind, order):
     _check_limbs(tout, jout, order)
 
 
+@pytest.mark.parametrize("order", ["forward", "reverse"])
+def test_sym_stream_limb_step_vs_pallas_interpret(order):
+    """The sym stream's per-limb step, KN from pte at (1, B, n) on the
+    limb's own q, r0, r1 and tables (reversed buffers in reverse order),
+    against the JAX reduce_pte_i64 + fused-sym kernel in interpret mode
+    for that limb's prime, on edge pte values; n = 256, B = 128."""
+    from test_torch_ntt import edge_pte
+
+    tp = Parms(degree=256, moduli=PRIMES_27BIT[:3], scale=2.0 ** 20)
+    enc = LimbscanEncryptor(parms_from_jax(tp), "reference", order,
+                            device="cpu")
+    walk = list(tp.moduli[::-1] if order == "reverse" else tp.moduli)
+    assert list(enc.moduli) == walk
+    rng = np.random.default_rng(31)
+    B, n = 128, tp.degree
+    pte = edge_pte(rng, walk, B, n)
+    for j, q in enumerate(walk):
+        a = rng.integers(0, q, (B, n), dtype=np.int64)
+        ntt_s = rng.integers(0, q, (1, n), dtype=np.int64)
+        got = enc.c0_from_pte(torch.as_tensor(pte), torch.as_tensor(a)[None],
+                              torch.as_tensor(ntt_s), slice(j, j + 1))
+        red = np.asarray(jma.reduce_pte_i64(jnp.asarray(pte), q))
+        want = ntt_coeff_major_fused_sym(
+            jnp.asarray(red.T[None].astype(np.uint32)),
+            jnp.asarray(a.T[None].astype(np.uint32)),
+            jnp.asarray(ntt_s.astype(np.uint32)), (q,), interpret=True)
+        assert got.shape == (1, B, n)
+        assert np.array_equal(got[0].numpy(),
+                              np.asarray(want)[0].T.astype(np.int64)), (j, q)
+
+
 def test_se_encrypt_streaming_missing_seeds_raise_valueerror():
     """R3: the JAX function dies with a TypeError inside its seed
     conversion when a seed list is left at None; the port names it."""
@@ -140,12 +173,12 @@ def test_se_encrypt_streaming_missing_seeds_raise_valueerror():
 
 def test_stream_argument_checks():
     values, sk, share, err = _inputs(4)
-    args = state_to_device(values, sk, share, err)
+    args = state_to_device(values, sk, share, err, device="cpu")
     tp = parms_from_jax(P)
     with pytest.raises(ValueError, match="order"):
         tstream.sym_encrypt_stream(*args, tp, "f64", "sideways")
     with pytest.raises(ValueError, match="encode mode"):
         tstream.sym_encrypt_stream(*args, tp, "fp16")
     with pytest.raises(ValueError, match="order"):
-        tstream.sym_stream_with(LimbscanEncryptor(tp, order="reverse"),
+        tstream.sym_stream_with(LimbscanEncryptor(tp, order="reverse", device="cpu"),
                                 *args, order="forward")

@@ -64,7 +64,7 @@ def test_sym_encrypt_batch_vs_jax(variant, loaded, tmp_path):
                     else (None, None))
     want = _jax_batch(variant)
     assert bool(want["ok"].all())
-    args = state_to_device(*_inputs(2, P.degree, seed=7))
+    args = state_to_device(*_inputs(2, P.degree, seed=7), device="cpu")
     got = tsym.sym_encrypt_batch(*args, parms_from_jax(P), variant,
                                  root_tables=tables, imap=imap)
     assert np.array_equal(got["ok"].numpy(), np.asarray(want["ok"]))
@@ -72,7 +72,7 @@ def test_sym_encrypt_batch_vs_jax(variant, loaded, tmp_path):
         assert np.array_equal(got[k].numpy(),
                               np.asarray(want[k]).astype(np.int64)), k
     # sym.py:68-84 chains the share counter as the reference layout does.
-    fused = SymEncryptor(parms_from_jax(P))(*args)
+    fused = SymEncryptor(parms_from_jax(P), device="cpu")(*args)
     for k in ("c0", "c1", "pt", "pte", "ok"):
         assert torch.equal(got[k], fused[k]), k
     if loaded:   # the loaded tables are the ones read: a changed root shows
@@ -89,8 +89,8 @@ def test_decrypt_batch_vs_jax(impl):
     the JAX decrypt; the lazy INTT reads the reference's file-order fast
     tables (loaded for the first prime, computed for the second)."""
     values, sk, share, err = _inputs(2, P.degree, seed=8)
-    args = state_to_device(values, sk, share, err)
-    out = tsym.make_sym_encryptor(parms_from_jax(P))(*args)
+    args = state_to_device(values, sk, share, err, device="cpu")
+    out = tsym.make_sym_encryptor(parms_from_jax(P), device="cpu")(*args)
     q0 = int(P.moduli[0])
     pairs = jser.intt_fast_root_table(P.degree, P.logn, q0, P.ntt_root(q0))
     loaded = {q0: (pairs[0::2], pairs[1::2])} if impl == "lazy" else None
@@ -109,13 +109,13 @@ def test_reverse_and_parallel_decrypt():
     """A reverse walk decrypts under the reversed chain, and the parallel
     layout under the forward one, canonical and lazy alike."""
     values, sk, share, err = _inputs(2, P.degree, seed=9)
-    args = state_to_device(values, sk, share, err)
+    args = state_to_device(values, sk, share, err, device="cpu")
     tp = parms_from_jax(P)
     rev_parms = jcfg.Parms(degree=P.degree, moduli=P.moduli[::-1],
                            scale=P.scale)
     for parms, layout, order in ((rev_parms, "reference", "reverse"),
                                  (P, "parallel", "forward")):
-        out = tlw.LimbscanEncryptor(tp, layout, order)(*args)
+        out = tlw.LimbscanEncryptor(tp, layout, order, device="cpu")(*args)
         for impl in ("canonical", "lazy"):
             cen = tsym.decrypt_batch(out["c0"], out["c1"], args[1],
                                      parms_from_jax(parms), impl)
@@ -129,7 +129,7 @@ def test_ntt_s_and_argument_checks():
     want = jax.jit(jsym._ntt_s_for_prime, static_argnums=1)(jnp.asarray(sk), q)
     got = tsym._ntt_s_for_prime(torch.as_tensor(sk), q)
     assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
-    args = state_to_device(*_inputs(1, P.degree))
+    args = state_to_device(*_inputs(1, P.degree), device="cpu")
     with pytest.raises(ValueError):
         tsym.sym_encrypt_batch(*args, parms_from_jax(P), "fft")
     with pytest.raises(ValueError):
