@@ -19,16 +19,19 @@ line each:
 2. build: the kernels from ``seal_embedded_tpu_torch/csrc/`` (sm_90a);
 3. each kernel (KK Keccak in its base, queue, CBD, ternary roles, with
    explicit counters and seed-broadcast, and its CBD-values role; KN NTT
-   unfused and fused from the int64 pte on edge values; KA asym NTT; KE
-   encode) against its plain torch version at the main path's shapes,
-   bit for bit, and timed beside it through its wrapper and alone (the
-   profiler's kernel time);
+   unfused and fused from the int64 pte on edge values; KA asym NTT from
+   the signed u, e1 and edge pte values at (3, 1024, 4096), (1, 1024,
+   4096) and n = 16384; KE encode with edge rows at n = 4096 (one block a
+   row), 8192 and 16384 (a 2-CTA cluster a row)) against its plain torch
+   version at the main path's shapes, bit for bit, and timed beside it
+   through its wrapper and alone (the profiler's kernel time);
 3b. calibrate: KC (both op mixes) against its plain version, bit for
    bit, and timed beside it; the measured keccak and ntt ceilings at a
-   full-card tile count; each row's bound (its bytes at 3.35 TB/s or its
-   integer instructions at the SMs' integer rate, the larger), which its
-   time alone may not beat, its roofline share, and each KK, KN and KA
-   row's sol_frac_calibrated through the wrapper and alone;
+   full-card tile count; each row's bound (its bytes at 3.35 TB/s, its
+   integer instructions at the SMs' integer rate, or its f64 operations
+   at their f64 rate, the largest), which its time alone may not beat,
+   its roofline share, and each KK, KN and KA row's
+   sol_frac_calibrated through the wrapper and alone;
 4. the port on the card against all seven sym and all three asym
    C-reference golden files (pk generation included), the sym goldens
    also through the limb-scan encryptor, sym_encrypt_batch and expand_c1;
@@ -100,6 +103,7 @@ GOLDEN_CONFIGS = ((1024, 1), (2048, 1), (4096, 3), (8192, 3), (8192, 6),
 ASYM_GOLDEN_CONFIGS = ((4096, 3), (8192, 6), (16384, 13))
 N, L, B = 4096, 3, 1024
 TIME_ITERS = 10
+KE_ROWS = 256       # KE's rows at n = 8192 and 16384
 
 TPU = "seal_embedded_tpu/ops/kernels/"
 K1 = TPU + "keccak.py:362 _squeeze_call"
@@ -135,8 +139,16 @@ CALIB_LANE_ITERS_PER_SM = 2 * 1024 * 32768
 #   three products go to the FMA pipe);
 # * KC's mixes, per chain and iteration: keccak a rotation and 2 LOP3, 3;
 #   ntt a butterfly per pair of chains, 2.
+#
+# f64: 64 add or multiply results per clock per SM (the same table, compute
+# capability 9.0); KE needs 10 a butterfly (2 adds, 2 subtractions and
+# 4 products for u + w and (u - w) * s, complex) and 2 a coefficient (the
+# scaling product and the rounding's add).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_SM_CLOCK = 64
+F64_OPS_PER_SM_CLOCK = 64
+F64_OPS_PER_BUTTERFLY = 10
+F64_OPS_PER_COEFF = 2
 INT_OPS_PER_UNIT = {"keccak": 4152, "ntt": 4}
 INT_OPS_PER_MIX_CHAIN = {"keccak": 3, "ntt": 2}
 
@@ -186,14 +198,15 @@ def nvidia_smi(query: str) -> str:
 
 def phase_device():
     """The card: returns (its name and power limit as nvidia-smi gives
-    them, its integer-pipe rate in instructions/s at its maximum SM
-    clock)."""
+    them, its SMs times their maximum clock in Hz: the per-SM-per-clock
+    rates times this are the card's rates)."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
     smi = nvidia_smi("name,power.limit")
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    int_rate = INT_OPS_PER_SM_CLOCK * sms * mhz * 1e6
+    sm_hz = sms * mhz * 1e6
+    int_rate = INT_OPS_PER_SM_CLOCK * sm_hz
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     print(f"[1 device] {torch.cuda.get_device_name(0)} | torch "
@@ -201,7 +214,7 @@ def phase_device():
           f"{sms} SMs, max SM clock {mhz:.0f} MHz: integer pipe "
           f"{int_rate / 1e12:.3f} Tinstr/s")
     print(smi)
-    return smi, int_rate
+    return smi, sm_hz
 
 
 def phase_build():
@@ -247,20 +260,21 @@ def phase_kernels(dev):
     rows = []
 
     def row(name, source, replaces, counter, err, fn, plain_fn, shape, work,
-            moved):
+            moved, f64_ops=0):
         """One kernel row: fn through the wrapper and (in phase 3b) alone,
         plain_fn the plain version; fn is kept, so it binds its inputs.
         work: ("keccak", permutations) or ("ntt", butterflies), what
-        phase 3b reckons the row's bound and sol_frac_calibrated from;
-        moved: the bytes the function must read and write, each input once
-        and each output once."""
+        phase 3b reckons the row's integer instructions and
+        sol_frac_calibrated from; moved: the bytes the function must read
+        and write, each input once and each output once; f64_ops: the f64
+        operations it must do."""
         ms, pms = timed_pair(fn, plain_fn)
         ops = 0 if work is None else work[1] * INT_OPS_PER_UNIT[work[0]]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "counter": counter,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "fn": fn, "shape": shape, "work": work, "ops": ops,
-                     "bytes": moved})
+                     "f64_ops": f64_ops, "bytes": moved})
 
     # KK: the uniform base draw (121 blocks, one warp per stream), the
     # queue (nwords=1, 160 per stream: the chain-aware queue_cap_for) and
@@ -376,67 +390,76 @@ def phase_kernels(dev):
             print(f"[3 kernels] KN from pte n={n} L={lim} B={batch}, edge "
                   "pte values: bit-equal")
 
-    # KA at the asym headline's shape with the 4096_3 golden pk, then at
-    # n = 16384 with the 16384_13 golden pk (144 KB of shared memory per
-    # block); inputs below q + 1 with q itself at the head of every row.
-    for n, lim, batch in ((N, L, B), (16384, 13, 2)):
-        gold = load_golden("asym", n, lim)
-        pk = pk_to_device(gold["pk0"], gold["pk1"], dev)
-        q = torch.tensor(default_parms(n, lim).moduli, dtype=torch.int64,
-                         device=dev)
-        op, quot = (torch.as_tensor(t.astype(np.int64), device=dev)
-                    for t in ntt_ops.ntt_tables_stacked(n, q.tolist()))
-        rows_in = []
-        for _ in range(3):
-            x = u32(rng, (lim, batch, n), dev) % (q[:, None, None] + 1)
-            x[:, :, :8] = q[:, None, None]
-            rows_in.append(x)
-        args = (*rows_in, op, quot, q)
+    # KA from the signed u, e1 and the int64 pte: at the asym headline's
+    # shape with the 4096_3 golden pk, at the stream's per-limb shape (its
+    # first limb), and at n = 16384 with the 16384_13 golden pk.  u holds
+    # every value of {-1, 0, 1}, e1 +-63 and 0, pte the edge values.
+    for n, lim, batch in ((N, L, B), (N, 1, B), (16384, 13, 2)):
+        gold = load_golden("asym", n, max(lim, L))
+        pk = [p[:lim] for p in pk_to_device(gold["pk0"], gold["pk1"], dev)]
+        moduli, op, quot, q = tables(n, max(lim, L))
+        moduli, op, quot, q = moduli[:lim], op[:lim], quot[:lim], q[:lim]
+        mods = ma.modpack(moduli, dev)
+        u = torch.as_tensor(rng.integers(-1, 2, (batch, n)), device=dev)
+        u[:, :3] = torch.tensor([-1, 0, 1])
+        e1 = torch.as_tensor(rng.integers(-63, 64, (batch, n)), device=dev)
+        e1[:, :3] = torch.tensor([-63, 0, 63])
+        pte = edge_pte(rng, moduli, batch, n, dev)
+        args = (u, e1, pte, op, quot, q, mods.r0, mods.r1)
         for p in pk:
             args += (p, ma.shoup_quotient(p, q[:, None]))
-        got = k_ntt.ntt_asym(*args)
-        want = ntt_ops.ntt_asym_plain(*args)
-        err = max(require_equal(f"KA {c} n={n} B={batch}", g, w)
+        got = k_ntt.ntt_asym_from_signed(*args)
+        want = ntt_ops.ntt_asym_from_signed_plain(*args)
+        err = max(require_equal(f"KA {c} n={n} L={lim} B={batch}", g, w)
                   for c, g, w in zip(("c0", "c1"), got, want))
         if n == N:
-            row("ntt_asym", kn, K6, "ntt_asym", err,
-                lambda args=args: k_ntt.ntt_asym(*args),
-                lambda: ntt_ops.ntt_asym_plain(*args),
-                f"(L, B, n) = ({lim}, {batch}, {n}), golden pk",
+            row(f"ntt_asym_from_signed L={lim}", kn, K6, "ntt_asym", err,
+                lambda args=args: k_ntt.ntt_asym_from_signed(*args),
+                lambda args=args: ntt_ops.ntt_asym_from_signed_plain(*args),
+                f"u, e1, pte (B, n) = ({batch}, {n}) -> (L, B, n) = ({lim}, "
+                f"{batch}, {n}), golden pk, edge pte values",
                 ("ntt", k_calib.ntt_butterflies(lim, batch, n, 3)),
-                u32_bytes(*args, *got))
+                u.numel() + e1.numel() + nbytes(pte)
+                + u32_bytes(*args[3:], *got))
         else:
-            print(f"[3 kernels] KA n={n} L={lim} B={batch}: bit-equal")
+            print(f"[3 kernels] KA n={n} L={lim} B={batch}, edge pte "
+                  "values: bit-equal")
 
-    # KE at (1024, 2048) -> n = 4096 with edge rows: +0.0, -0.0, f32
-    # subnormals, and magnitudes around the 2^63 overflow bound.  The
-    # reference is the plain encode on CPU copies.
-    parms = default_parms(N, L)
-    vals = rng.uniform(-1, 1, (B, N // 2)).astype(np.float32)
-    vals[0] = 0.0
-    vals[1] = -0.0
-    vals[2] = rng.choice(np.array([1e-45, -1e-45, 1e-40, -3e-39, 1.1e-38],
-                                  dtype=np.float32), N // 2)
-    vals[3, ::2] = 0.0
-    for r, mag in enumerate((1e12, 8.0e12, 8.5e12, 1e13, 3e38)):
-        vals[4 + r] *= np.float32(mag)
-    v = torch.as_tensor(vals, device=dev)
-    imap, tw_re, tw_im = enc.table_tensors(N, dev)
-    sn = enc.scale_over_n(parms)
-    coeff, ok = k_encode.encode_f64(v, imap, tw_re, tw_im, sn)
-    want_c, want_ok = enc.encode_tables(v.cpu(), imap.cpu(), tw_re.cpu(),
-                                        tw_im.cpu(), sn)
-    if not torch.equal(ok.cpu(), want_ok):
-        raise AssertionError("KE: ok flags differ from the plain version")
-    if not (bool(want_ok[:5].all()) and not bool(want_ok[7:9].any())):
-        raise AssertionError("KE: edge rows did not straddle the bound")
-    err = require_equal("KE", coeff.cpu()[want_ok], want_c[want_ok])
-    row("encode_f64", "seal_embedded_tpu_torch/csrc/encode.cu", K5, "encode",
-        err, lambda: k_encode.encode_f64(v, imap, tw_re, tw_im, sn),
-        lambda: enc.encode_tables(v, imap, tw_re, tw_im, sn),
-        f"(B, vlen) = ({B}, {N // 2}), n = {N}; "
-        f"{int((~want_ok).sum())} overflow rows", None,
-        nbytes(v, imap, tw_re, tw_im, coeff, ok))
+    # KE with edge rows: +0.0, -0.0, f32 subnormals, half-zero rows, and
+    # rows scaled so their largest coefficient lands at 0.5 and 0.99 of
+    # the 2^63 overflow bound, at 1.02 and 2 times it, and 3e38: at n =
+    # 4096 (the main path's shape, one block a row), 8192 and 16384 (a
+    # 2-CTA cluster a row).  The reference is the plain encode on CPU
+    # copies.
+    ke = "seal_embedded_tpu_torch/csrc/encode.cu"
+    for n, batch in ((N, B), (8192, KE_ROWS), (16384, KE_ROWS)):
+        sn = enc.scale_over_n(default_parms(n, L))
+        imap, tw_re, tw_im = enc.table_tensors(n, dev)
+        tabs = [t.cpu() for t in (imap, tw_re, tw_im)]
+        v = torch.as_tensor(ke_edge_values(rng, n, batch, tabs, sn),
+                            device=dev)
+        coeff, ok = k_encode.encode_f64(v, imap, tw_re, tw_im, sn)
+        want_c, want_ok = enc.encode_tables(v.cpu(), *tabs, sn)
+        if not torch.equal(ok.cpu(), want_ok):
+            raise AssertionError(f"KE n={n}: ok flags differ from the plain "
+                                 "version")
+        if not (bool(want_ok[:6].all()) and not bool(want_ok[6:9].any())):
+            raise AssertionError(f"KE n={n}: edge rows did not straddle "
+                                 "the bound")
+        err = require_equal(f"KE n={n}", coeff.cpu()[want_ok],
+                            want_c[want_ok])
+        logn = n.bit_length() - 1
+        ctas = 1 if n < 8192 else 2
+        row(f"encode_f64 n={n}", ke, K5, "encode", err,
+            lambda v=v, imap=imap, tw_re=tw_re, tw_im=tw_im, sn=sn:
+                k_encode.encode_f64(v, imap, tw_re, tw_im, sn),
+            lambda v=v, imap=imap, tw_re=tw_re, tw_im=tw_im, sn=sn:
+                enc.encode_tables(v, imap, tw_re, tw_im, sn),
+            f"(B, vlen) = ({batch}, {n // 2}), n = {n}, {ctas} CTA a row; "
+            f"{int((~want_ok).sum())} overflow rows", None,
+            nbytes(v, imap, tw_re, tw_im, coeff, ok),
+            batch * (F64_OPS_PER_BUTTERFLY * logn * n // 2
+                     + F64_OPS_PER_COEFF * n))
     for r in rows:
         print(f"[3 kernels] {r['name']} {r['shape']}: bit-equal; "
               f"{r['ms']:.4f} ms through the wrapper, plain "
@@ -464,7 +487,27 @@ def edge_pte(rng, moduli, batch, n, dev):
     return torch.as_tensor(x, device=dev)
 
 
-def phase_calibrate(dev, smi, int_rate, rows):
+def ke_edge_values(rng, n, batch, tables, sn):
+    """float32 (batch >= 9, n / 2) values for KE: rows 0..3 +0.0, -0.0,
+    f32 subnormals and half zeros, rows 4..7 scaled so their largest
+    coefficient (the plain encode's, on the CPU tables) lands at 0.5 and
+    0.99 of the 2^63 bound and at 1.02 and 2 times it, row 8 times 3e38,
+    the rest uniform in [-1, 1)."""
+    vals = rng.uniform(-1, 1, (batch, n // 2)).astype(np.float32)
+    vals[0] = 0.0
+    vals[1] = -0.0
+    vals[2] = rng.choice(np.array([1e-45, -1e-45, 1e-40, -3e-39, 1.1e-38],
+                                  dtype=np.float32), n // 2)
+    vals[3, ::2] = 0.0
+    unit, _ = enc.encode_tables(torch.as_tensor(vals[4:8]), *tables, sn)
+    peak = unit.abs().max(dim=1).values.double().numpy()
+    for r, f in enumerate((0.5, 0.99, 1.02, 2.0)):
+        vals[4 + r] *= np.float32(f * 2.0 ** 63 / peak[r])
+    vals[8] *= np.float32(3e38)
+    return vals
+
+
+def phase_calibrate(dev, smi, sm_hz, rows):
     """KC against its plain version, then the ceilings, then each row's
     bound and roofline share, and each KK, KN and KA row's
     sol_frac_calibrated (bench.py's share of the measured op-mix ceiling,
@@ -473,6 +516,8 @@ def phase_calibrate(dev, smi, int_rate, rows):
     ceiling run)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles = 2 * sms
+    int_rate = INT_OPS_PER_SM_CLOCK * sm_hz
+    f64_rate = F64_OPS_PER_SM_CLOCK * sm_hz
     kc_src = "seal_embedded_tpu_torch/csrc/calibrate.cu"
     kc_rows = []
     for mix in cal.MIXES:
@@ -494,7 +539,7 @@ def phase_calibrate(dev, smi, int_rate, rows):
                             x, mix, CALIB_MID_ITERS),
                         "shape": f"{tiles} tiles x 8 chains x 1024 lanes, "
                                  f"{CALIB_MID_ITERS} iters",
-                        "work": None, "kind": mix,
+                        "work": None, "kind": mix, "f64_ops": 0,
                         "ops": CALIB_MID_ITERS * 8
                         * INT_OPS_PER_MIX_CHAIN[mix] * tiles * k_calib.LANES,
                         "bytes": 2 * u32_bytes(x)})
@@ -526,14 +571,14 @@ def phase_calibrate(dev, smi, int_rate, rows):
 
     set_kernel_alone_ms(rows + kc_rows)
 
-    # Each row's bound: the larger of its bytes at the HBM rate and its
-    # integer instructions at the SMs' integer rate (KE's f64 work is not
-    # counted, so its bound is its bytes).  No kernel alone may beat it.
+    # Each row's bound: the largest of its bytes at the HBM rate, its
+    # integer instructions at the SMs' integer rate and its f64 operations
+    # at their f64 rate.  No kernel alone may beat it.
     ceiling = {mix: v[0] for mix, v in best.items()}
     for r in rows + kc_rows:
         kind = r["work"][0] if r["work"] else r.get("kind")
         bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        bound_ops = r["ops"] / int_rate * 1e3
+        bound_ops = max(r["ops"] / int_rate, r["f64_ops"] / f64_rate) * 1e3
         r["bound_ms"] = max(bound_bytes, bound_ops)
         r["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
         roofline = r["bound_ms"] / r["kernel_ms"]
@@ -541,7 +586,9 @@ def phase_calibrate(dev, smi, int_rate, rows):
                 f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
                 f"({r['bytes'] / 1e6:.1f} MB at 3.35 TB/s: "
                 f"{bound_bytes:.4f} ms; {r['ops'] / 1e6:.1f} M integer "
-                f"instructions: {bound_ops:.4f} ms); roofline share "
+                f"instructions: {r['ops'] / int_rate * 1e3:.4f} ms; "
+                f"{r['f64_ops'] / 1e6:.1f} M f64 operations: "
+                f"{r['f64_ops'] / f64_rate * 1e3:.4f} ms); roofline share "
                 f"{roofline:.4f} alone, "
                 f"{r['bound_ms'] / r['ms']:.4f} through the wrapper")
         if roofline > 1:
@@ -1001,11 +1048,11 @@ def phase_api_stream(dev, smi):
 
 
 def main():
-    smi, int_rate = phase_device()
+    smi, sm_hz = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     rows = phase_kernels(dev)
-    kc_rows, calib_counts = phase_calibrate(dev, smi, int_rate, rows)
+    kc_rows, calib_counts = phase_calibrate(dev, smi, sm_hz, rows)
     rows += kc_rows
     phase_golden(dev)
     # The kernels each path must launch: sym's c0 comes from KN's from-pte

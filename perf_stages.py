@@ -22,9 +22,12 @@ At n = 4096, L = 3, B = 1024, on inputs made from seed 0:
   ``record_function`` range around each stage's calls, device ms per
   stage (each kernel belongs to the innermost stage whose device-side
   range holds its start);
-* single steps through their wrappers (CUDA events) and alone (the
-  profiler's time of the port's own kernels): KK's base squeeze (1024
-  streams x 121 blocks) and the CBD draw.
+* single steps through their wrappers (CUDA events), alone (the
+  profiler's time of the port's own kernels), the port's kernel launches
+  per call (from the same trace) and the peak device memory above what
+  was allocated when the call started: KK's base squeeze (1024 streams x
+  121 blocks), the CBD draw, and KE at n = 4096 and at n = 16384, B =
+  1024 each.
 
 Prints the card's name and power limit, then one JSON object per
 measurement; with --out, also writes them all to FILE as one object.
@@ -86,12 +89,15 @@ def host_ms(fn, iters=ITERS):
     return statistics.median(times)
 
 
-def peak_mib(fn):
+def peak_mib(fn, above_start=False):
+    """Peak device MiB over one call of fn; with above_start, above the
+    memory allocated when it starts."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if above_start else 0
     fn()
     torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() / 2 ** 20
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
 def trace(run, cpu=True):
@@ -134,16 +140,22 @@ def device_events(fns, iters):
     return groups[:-1]
 
 
+def port_kernels(fns, iters=ITERS):
+    """The port's own kernel events of `iters` calls of each fn, one list
+    per fn (device_events without the torch passes)."""
+    groups = [[e for e in group if any(k in e[2] for k in PORT_KERNELS)]
+              for group in device_events(fns, iters)]
+    if not all(groups):
+        raise RuntimeError(f"the profiler saw port kernels in "
+                           f"{sum(map(bool, groups))} of {len(fns)} calls")
+    return groups
+
+
 def kernel_alone_ms(fns, iters=ITERS):
     """Device ms per call of each fn spent in the port's own kernels: the
     kernel alone, without the wrapper's host work or any torch pass."""
-    ms = [sum(end - start for start, end, name in group
-              if any(k in name for k in PORT_KERNELS)) / iters / 1e3
-          for group in device_events(fns, iters)]
-    if not all(ms):
-        raise RuntimeError(f"the profiler saw port kernels in "
-                           f"{sum(map(bool, ms))} of {len(fns)} calls")
-    return ms
+    return [sum(end - start for start, end, _ in group) / iters / 1e3
+            for group in port_kernels(fns, iters)]
 
 
 def union_us(intervals):
@@ -226,12 +238,9 @@ STAGES = [
     ("ops.sampling", "_squeeze", squeeze_label),
     ("ops.sampling", "_rank_select", "rank-select"),
     ("ops.sampling", "barrett32", "barrett32"),
-    ("ops.modarith", "reduce_pte_i64", "reduce_pte_i64"),
     ("ckks.fast:SymEncryptor", "ntt_secret", "ntt(s)"),
     ("ckks.fast:SymEncryptor", "c0_from_pte", "c0 (KN from pte)"),
-    ("ckks.asym", "ntt_asym", "KA"),
-    ("ckks.asym", "_signed_to_modq", "u, e1 to mod q"),
-    ("ops.sampling", "ternary_to_modq_any", "u, e1 to mod q"),
+    ("ckks.asym", "ntt_asym_from_signed", "KA"),
 ]
 
 
@@ -246,8 +255,8 @@ def main():
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
     pkg = "seal_embedded_tpu_torch"
     mod = {m: importlib.import_module(f"{pkg}.{m}") for m in (
-        "config", "ckks.fast", "ckks.asym", "ops.sampling",
-        "ops.kernels.keccak")}
+        "config", "ckks.fast", "ckks.asym", "ops.sampling", "ops.encode",
+        "ops.kernels.keccak", "ops.kernels.encode")}
     assert pathlib.Path(mod["config"].__file__).resolve().is_relative_to(
         pathlib.Path(args.root).resolve()), mod["config"].__file__
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -275,9 +284,21 @@ def main():
              lambda: squeeze(share, ctr, -(-4 * N // 136))}
     steps["CBD draw (1024, 4096)"] = lambda: sp.sample_cbd(
         err, sp.counter_zero((B,), dev), N)
-    for (name, fn), alone in zip(steps.items(),
-                                 kernel_alone_ms(list(steps.values()))):
-        results[name] = {"wrapper_ms": cuda_ms(fn), "kernel_alone_ms": alone}
+    for n in (N, 16384):
+        tabs = mod["ops.encode"].table_tensors(n, dev)
+        sn = mod["ops.encode"].scale_over_n(mod["config"].default_parms(n, L))
+        v = t(rng.uniform(-1, 1, (B, n // 2)).astype(np.float32))
+        steps[f"KE encode ({B}, {n})"] = (
+            lambda v=v, tabs=tabs, sn=sn:
+                mod["ops.kernels.encode"].encode_f64(v, *tabs, sn))
+    events = port_kernels(list(steps.values()))
+    for (name, fn), group in zip(steps.items(), events):
+        results[name] = {
+            "wrapper_ms": cuda_ms(fn),
+            "kernel_alone_ms": sum(e - s for s, e, _ in group) / ITERS / 1e3,
+            "launches_per_call": len(group) / ITERS,
+            "peak_mib_above_start": peak_mib(fn, above_start=True)}
+    del steps, events, v, tabs   # out of the batches' peaks
 
     # Batches.
     ep = t(rng.integers(-20, 21, N))

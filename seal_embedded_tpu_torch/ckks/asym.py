@@ -9,7 +9,9 @@ Port of ``seal_embedded_tpu/ckks/asym.py`` (ckks_asym.c:159-286):
   e0 <- CBD, then e1 <- CBD, the counter chaining from draw to draw; then
   per prime c1 = pk1 * ntt(u) + ntt(e1) and c0 = pk0 * ntt(u) + ntt(pte),
   pte = pt + e0.  The per-prime step has no sequential dependency: all
-  limbs go through kernel KA in one launch, at every degree.
+  limbs go through kernel KA in one launch, at every degree, straight
+  from the signed (B, n) u, e1 and the int64 pte (KA maps and reduces
+  them per limb as it loads them).
 
 On CPU tensors every kernel wrapper runs its plain version, so the same
 module is the reference path of the tests.
@@ -25,13 +27,10 @@ from ..convert import CUDA
 from ..ops import modarith as ma
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
-from ..ops.kernels.ntt import ntt_asym, ntt_fwd
+from ..ops.kernels.ntt import ntt_asym_from_signed, ntt_fwd
 from ..ops.ntt import ntt_tables_stacked
 from .fast import EncryptorBase
 
-
-# Small signed values (CBD's [-63, 63]) -> [0, q): the ternary fold.
-_signed_to_modq = sp.ternary_to_modq_any
 
 
 class AsymEncryptor(EncryptorBase):
@@ -73,17 +72,12 @@ class AsymEncryptor(EncryptorBase):
 
     def combine(self, u, e1, pte, limbs=slice(None)):
         """(c0, c1) (l, B, n) of the limbs `limbs` (a slice of the
-        per-limb buffers) through KA, from the prologue's u, e1, pte."""
-        mods = self.limb_mod(limbs)
-        L = mods.q.shape[0]
-        B, n = u.shape
-        u_l = sp.ternary_to_modq_any(u[None], mods).expand(L, B, n)
-        e1_l = _signed_to_modq(e1[None], mods.q).expand(L, B, n)
-        pte_l = ma.reduce_pte_i64(pte[None], mods)
-        return ntt_asym(u_l.contiguous(), e1_l.contiguous(), pte_l,
-                        self.ntt_op[limbs], self.ntt_quot[limbs],
-                        self.q[limbs], self.pk0[limbs], self.pk0_quot[limbs],
-                        self.pk1[limbs], self.pk1_quot[limbs])
+        per-limb buffers) in one KA launch, from the prologue's signed u,
+        e1 and int64 pte (B, n)."""
+        return ntt_asym_from_signed(
+            u, e1, pte, self.ntt_op[limbs], self.ntt_quot[limbs],
+            self.q[limbs], self.r0[limbs], self.r1[limbs], self.pk0[limbs],
+            self.pk0_quot[limbs], self.pk1[limbs], self.pk1_quot[limbs])
 
 
 def gen_pk_batch(sk_signed, pk_seed_words, ep, parms: Parms):
@@ -107,7 +101,7 @@ def gen_pk_batch(sk_signed, pk_seed_words, ep, parms: Parms):
     mods = ma.Mod(m.q[:, None], m.r0[:, None], m.r1[:, None], None)  # (L, 1)
     rows = torch.stack([
         sp.ternary_to_modq_any(sk_signed.to(torch.int64), mods),
-        _signed_to_modq(ep.to(torch.int64), mods.q)], dim=1)
+        sp.ternary_to_modq_any(ep.to(torch.int64), mods)], dim=1)
     ntts = ntt_fwd(rows, op, quot, m.q)
     pk0 = ma.add_mod(ma.neg_mod(ma.mul_mod(pk1, ntts[:, 0], mods), mods),
                      ntts[:, 1], mods)

@@ -61,12 +61,6 @@ class EncryptorBase(nn.Module):
         return encode_f64(values, self.imap, self.tw_re, self.tw_im,
                           self.scale_n)
 
-    def limb_mod(self, limbs=slice(None)):
-        """The Mod of the limbs `limbs` (a slice of the per-limb buffers),
-        shaped (l, 1, 1) against (l, B, n) data."""
-        return ma.Mod(self.q[limbs, None, None], self.r0[limbs, None, None],
-                      self.r1[limbs, None, None], None)
-
 
 class SymEncryptor(EncryptorBase):
     """sym_encrypt_fused for one parameter set, with its tables resident

@@ -8,8 +8,10 @@
 // (K4, ntt_coeff_major_fused_sym, epilogue at :211-223).
 //
 // KA: the asymmetric per-limb step, three NTTs and the public-key combine
-//   c1 = pk1 * ntt(u) + ntt(e1),  c0 = pk0 * ntt(u) + ntt(pte)  mod q.
-// Replaces ntt_coeff_major_fused_asym (K6, kernels/ntt.py:301-387).
+//   c1 = pk1 * ntt(u) + ntt(e1),  c0 = pk0 * ntt(u) + ntt(pte)  mod q,
+// from the signed u, e1 and the int64 pte.  Replaces
+// ntt_coeff_major_fused_asym (K6, kernels/ntt.py:301-387) and the mapping
+// and reduce_pte_i64 passes the JAX package runs before it.
 //
 // Bound on the H100.  KN from pte at (L, B, n) = (3, 1024, 4096) must
 // read pte once (33.5 MB: any int64), read a and write c0 (50 MB each:
@@ -45,11 +47,27 @@
 // row, so the pte row is read from device memory once (later limbs hit
 // L2) and (L, B, n) reduced values are never stored.
 //
-// KA keeps two padded rows in shared memory (8 x 1.125 n bytes, 144 KB at
-// n = 16384): ntt(u) stays in A while ntt(e1) and then ntt(pte) pass
-// through B.  Its rows go through ntt_row, the register transform between
-// a shared-memory load and store.  Its I/O is u32 as before.  Above the
-// 48 KB default a kernel's shared memory is raised with
+// KA works as KN's from-pte entry does: one block per batch row runs all
+// L limbs, and reads the caller's int64 rows as they are.  Per limb it
+// maps the signed u and e1 on load (x < 0 -> x + q), reduces pte on load
+// with reduce_pte, and runs the three NTTs through ntt_regs.  At n <= 4096
+// (R = 8) the three run in lockstep: each pass loads its twiddles once for
+// the three rows, and the three exchange through three padded shared rows
+// (13.5 n bytes, 54 KB at n = 4096) behind one barrier; ntt(u), reduced
+// to [0, q), stays in registers for the combine.  Three register sets of
+// R = 16 or 32 would spill, so at n = 8192 and 16384 the transforms run
+// one after the other through one row, and each thread keeps its n / T
+// words of ntt(u) in shared memory after the row (8.5 n bytes: 68 KB at
+// n = 8192, 136 KB at 16384).  The epilogue works in the last pass's
+// layout: c1 = pk1 * ntt(u) + ntt(e1), then c0 = pk0 * ntt(u) + ntt(pte),
+// the pk Shoup pairs loaded and the results stored as 16-byte int64
+// pairs.  No (L, B, n) input is stored: the signed rows are read from
+// device memory once and later limbs hit L2.  Its bound at (3, 1024,
+// 4096): 226.5 M butterflies x 4 integer-pipe instructions, 0.054 ms;
+// its bytes (u and e1 1 byte a value, pte 8, c0 and c1 4) 142.6 MB,
+// 0.043 ms.
+//
+// Above the 48 KB default a kernel's shared memory is raised with
 // cudaFuncSetAttribute.
 
 #include <cuda_runtime.h>
@@ -78,22 +96,14 @@ __device__ __forceinline__ int pass_elem(int j, int P, int lt, int t, int T) {
   return base + (k << lt);
 }
 
-__device__ __forceinline__ uint32_t table_at(const uint32_t* p, int i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ uint32_t table_at(const long long* p, int i) {
-  return (uint32_t)__ldg(p + i);
-}
-
-// Stages s0 .. s0 + P - 1 on the thread's sets, in registers.  At stage s
-// = s0 + p, set sigma's group of 2^(P - p) elements g has root
-// table[2^s + (sigma >> lt) 2^p + g] (ntt.c:89).
-template <int R, int P, typename Tab>
-__device__ __forceinline__ void pass_compute(uint32_t (&x)[R],
-                                             const Tab* __restrict__ opl,
-                                             const Tab* __restrict__ quotl,
-                                             uint32_t q, int s0, int lt,
-                                             int t, int T) {
+// Stages s0 .. s0 + P - 1 on the thread's sets of K rows, in registers.
+// At stage s = s0 + p, set sigma's group of 2^(P - p) elements g has root
+// table[2^s + (sigma >> lt) 2^p + g] (ntt.c:89); the K rows share it.
+template <int R, int P, int K>
+__device__ __forceinline__ void pass_compute(
+    uint32_t (&x)[K][R], const long long* __restrict__ opl,
+    const long long* __restrict__ quotl, uint32_t q, int s0, int lt, int t,
+    int T) {
   const uint32_t two_q = 2u * q;
 #pragma unroll
   for (int m = 0; m < (R >> P); ++m) {
@@ -104,73 +114,67 @@ __device__ __forceinline__ void pass_compute(uint32_t (&x)[R],
 #pragma unroll
       for (int g = 0; g < (1 << p); ++g) {
         const int root = (1 << (s0 + p)) + (G << p) + g;
-        const uint32_t r_op = table_at(opl, root);
-        const uint32_t r_quot = table_at(quotl, root);
+        const uint32_t r_op = (uint32_t)__ldg(opl + root);
+        const uint32_t r_quot = (uint32_t)__ldg(quotl + root);
 #pragma unroll
-        for (int k = 0; k < half; ++k) {
-          const int i0 = (m << P) + 2 * half * g + k;
-          const int i1 = i0 + half;
-          uint32_t u = x[i0];
-          if (u >= two_q) u -= two_q;
-          const uint32_t w = x[i1];
-          const uint32_t tw = w * r_op - __umulhi(w, r_quot) * q;
-          x[i0] = u + tw;
-          x[i1] = u + two_q - tw;
+        for (int c = 0; c < K; ++c) {
+#pragma unroll
+          for (int k = 0; k < half; ++k) {
+            const int i0 = (m << P) + 2 * half * g + k;
+            const int i1 = i0 + half;
+            uint32_t u = x[c][i0];
+            if (u >= two_q) u -= two_q;
+            const uint32_t w = x[c][i1];
+            const uint32_t tw = w * r_op - __umulhi(w, r_quot) * q;
+            x[c][i0] = u + tw;
+            x[c][i1] = u + two_q - tw;
+          }
         }
       }
     }
   }
 }
 
-// Forward NTT of a row held in registers, values below 4q.  On entry x
-// holds the first pass's elements (P = first_stages(logn), lt = logn -
-// P); on exit the result, lazily in [0, 4q), at the last pass's (P = 3,
-// lt = 0: register j = 8m + k holds element 8 (t + m T) + k).  v is the
-// block's padded shared row; the caller must not let another transform
-// write it before every thread has left this one.
-template <int R, typename Tab>
-__device__ __forceinline__ void ntt_regs(uint32_t (&x)[R], uint32_t* v,
-                                         const Tab* __restrict__ opl,
-                                         const Tab* __restrict__ quotl,
+// Forward NTTs of K rows of one modulus held in registers, values below
+// 4q, in lockstep.  On entry x holds the first pass's elements (P =
+// first_stages(logn), lt = logn - P); on exit the result, lazily in [0,
+// 4q), at the last pass's (P = 3, lt = 0: register j = 8m + k holds
+// element 8 (t + m T) + k).  v holds the block's K padded shared rows,
+// row c at c (n + n / 8); the caller must not let another transform write
+// them before every thread has left this one.
+template <int R, int K>
+__device__ __forceinline__ void ntt_regs(uint32_t (&x)[K][R], uint32_t* v,
+                                         const long long* __restrict__ opl,
+                                         const long long* __restrict__ quotl,
                                          uint32_t q, int logn) {
   const int t = threadIdx.x, T = blockDim.x;
+  const int stride = (1 << logn) + (1 << (logn - 3));
   const int P0 = first_stages(logn);
   int P = P0, lt = logn - P0;
   if (P0 == 1)
-    pass_compute<R, 1>(x, opl, quotl, q, 0, lt, t, T);
+    pass_compute<R, 1, K>(x, opl, quotl, q, 0, lt, t, T);
   else if (P0 == 2)
-    pass_compute<R, 2>(x, opl, quotl, q, 0, lt, t, T);
+    pass_compute<R, 2, K>(x, opl, quotl, q, 0, lt, t, T);
   else
-    pass_compute<R, 3>(x, opl, quotl, q, 0, lt, t, T);
+    pass_compute<R, 3, K>(x, opl, quotl, q, 0, lt, t, T);
   for (int s0 = P0; s0 < logn; s0 += 3) {
 #pragma unroll
-    for (int j = 0; j < R; ++j) v[sidx(pass_elem(j, P, lt, t, T))] = x[j];
+    for (int c = 0; c < K; ++c) {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        v[c * stride + sidx(pass_elem(j, P, lt, t, T))] = x[c][j];
+    }
     __syncthreads();
     P = 3;
     lt = logn - s0 - 3;
 #pragma unroll
-    for (int j = 0; j < R; ++j) x[j] = v[sidx(pass_elem(j, P, lt, t, T))];
-    pass_compute<R, 3>(x, opl, quotl, q, s0, lt, t, T);
+    for (int c = 0; c < K; ++c) {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        x[c][j] = v[c * stride + sidx(pass_elem(j, P, lt, t, T))];
+    }
+    pass_compute<R, 3, K>(x, opl, quotl, q, s0, lt, t, T);
   }
-}
-
-// Forward NTT of the padded shared row v in place, left lazily in [0, 4q)
-// and visible to the whole block on return.
-template <int R, typename Tab>
-__device__ __forceinline__ void ntt_row(uint32_t* v,
-                                        const Tab* __restrict__ opl,
-                                        const Tab* __restrict__ quotl,
-                                        uint32_t q, int logn) {
-  const int t = threadIdx.x, T = blockDim.x;
-  const int P0 = first_stages(logn);
-  uint32_t x[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j)
-    x[j] = v[sidx(pass_elem(j, P0, logn - P0, t, T))];
-  ntt_regs<R>(x, v, opl, quotl, q, logn);
-#pragma unroll
-  for (int j = 0; j < R; ++j) v[sidx(pass_elem(j, 3, 0, t, T))] = x[j];
-  __syncthreads();
 }
 
 // Final correction [0, 4q) -> [0, q).
@@ -247,20 +251,21 @@ __global__ void __launch_bounds__(kMaxThreads)
     const uint32_t q = (uint32_t)qs[l];
     const size_t lrow = (size_t)l * n;
     const size_t row = ((size_t)l * B + b) * n;
-    uint32_t xr[R];
+    uint32_t xr[1][R];
     if (kFromPte) {
       const uint32_t r0 = (uint32_t)r0s[l], r1 = (uint32_t)r1s[l];
       const long long* src = x + (size_t)b * n;
 #pragma unroll
       for (int j = 0; j < R; ++j)
-        xr[j] = reduce_pte(__ldg(src + pass_elem(j, P0, logn - P0, t, T)),
-                           q, r0, r1);
+        xr[0][j] = reduce_pte(
+            __ldg(src + pass_elem(j, P0, logn - P0, t, T)), q, r0, r1);
     } else {
 #pragma unroll
       for (int j = 0; j < R; ++j)
-        xr[j] = (uint32_t)__ldg(x + row + pass_elem(j, P0, logn - P0, t, T));
+        xr[0][j] =
+            (uint32_t)__ldg(x + row + pass_elem(j, P0, logn - P0, t, T));
     }
-    ntt_regs<R>(xr, v, op + lrow, quot + lrow, q, logn);
+    ntt_regs<R, 1>(xr, v, op + lrow, quot + lrow, q, logn);
 
 #pragma unroll
     for (int m = 0; m < R / 8; ++m) {
@@ -268,8 +273,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
       for (int k = 0; k < 8; k += 2) {
         const int e = e0 + k;
-        uint32_t v0 = reduce_4q(xr[8 * m + k], q);
-        uint32_t v1 = reduce_4q(xr[8 * m + k + 1], q);
+        uint32_t v0 = reduce_4q(xr[0][8 * m + k], q);
+        uint32_t v1 = reduce_4q(xr[0][8 * m + k + 1], q);
         if (kFromPte) {
           uint32_t a0, a1, so0, so1, sq0, sq1;
           load2(a + row + e, a0, a1);
@@ -288,62 +293,125 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// KA.  One block per (row, limb); buffer A = ntt(u), buffer B = ntt(e1),
-// then ntt(pte).  The loops over i give each thread the same indices in
-// every pass, so A's in-place reduction is read back by the thread that
-// wrote it.
+// c = pk * nu + x mod q in Shoup form, nu in [0, q), x below 4q: the
+// combine of the JAX fused-asym kernel (kernels/ntt.py:328-334).
+__device__ __forceinline__ uint32_t asym_combine(uint32_t nu, uint32_t x,
+                                                 uint32_t p_op,
+                                                 uint32_t p_quot, uint32_t q) {
+  const uint32_t r = shoup_mul(nu, p_op, p_quot, q) + reduce_4q(x, q);
+  return r >= q ? r - q : r;
+}
+
+// x < 0 -> x + q for the small signed u and e1 (ternary_to_modq_any).
+__device__ __forceinline__ uint32_t signed_to_modq(long long x, uint32_t q) {
+  return (uint32_t)(x < 0 ? x + (long long)q : x);
+}
+
+// KA's three transforms of a limb run in lockstep at R = 8; at R = 16 and
+// 32 three register sets would spill, so they run one after the other and
+// each thread keeps its own ntt(u) in shared memory, word j at j T + t.
 template <int R>
-__global__ void __launch_bounds__(kMaxThreads)
-    ntt_asym_kernel(const uint32_t* __restrict__ u,
-                    const uint32_t* __restrict__ e1,
-                    const uint32_t* __restrict__ pte,
-                    const uint32_t* __restrict__ op,
-                    const uint32_t* __restrict__ quot,
-                    const uint32_t* __restrict__ qs,
-                    const uint32_t* __restrict__ p0_op,
-                    const uint32_t* __restrict__ p0_quot,
-                    const uint32_t* __restrict__ p1_op,
-                    const uint32_t* __restrict__ p1_quot,
-                    uint32_t* __restrict__ c0, uint32_t* __restrict__ c1,
-                    int B, int logn) {
-  extern __shared__ uint32_t smem[];
-  const int n = 1 << logn;
-  uint32_t* va = smem;
-  uint32_t* vb = smem + n + n / 8;
-  const int l = blockIdx.y;
-  const size_t row = ((size_t)l * B + blockIdx.x) * (size_t)n;
-  const size_t lrow = (size_t)l * n;
-  const uint32_t* opl = op + lrow;
-  const uint32_t* quotl = quot + lrow;
-  const uint32_t q = qs[l];
+constexpr bool kNuShared = R > 8;
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    va[sidx(i)] = u[row + i];
-    vb[sidx(i)] = e1[row + i];
+// out = pk * ntt(u) + x per element, in the last pass's layout (register
+// j = 8m + k holds element 8 (t + m T) + k), as 16-byte int64 pairs;
+// ntt(u) from nu or, with kNuShared, from nus.
+template <int R>
+__device__ __forceinline__ void asym_store(
+    const uint32_t (&nu)[R], const uint32_t* nus, const uint32_t (&x)[R],
+    const long long* __restrict__ p_op, const long long* __restrict__ p_quot,
+    long long* __restrict__ out, uint32_t q) {
+  const int t = threadIdx.x, T = blockDim.x;
+#pragma unroll
+  for (int m = 0; m < R / 8; ++m) {
+    const int e0 = (t + m * T) << 3;
+#pragma unroll
+    for (int k = 0; k < 8; k += 2) {
+      const int e = e0 + k, j = 8 * m + k;
+      const uint32_t n0 = kNuShared<R> ? nus[j * T + t] : nu[j];
+      const uint32_t n1 = kNuShared<R> ? nus[(j + 1) * T + t] : nu[j + 1];
+      uint32_t o0, o1, h0, h1;
+      load2(p_op + e, o0, o1);
+      load2(p_quot + e, h0, h1);
+      longlong2 w;
+      w.x = asym_combine(n0, x[j], o0, h0, q);
+      w.y = asym_combine(n1, x[j + 1], o1, h1, q);
+      *reinterpret_cast<longlong2*>(out + e) = w;
+    }
   }
-  __syncthreads();
-  ntt_row<R>(va, opl, quotl, q, logn);
-  ntt_row<R>(vb, opl, quotl, q, logn);
+}
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const uint32_t nu = reduce_4q(va[sidx(i)], q);
-    va[sidx(i)] = nu;
-    const uint32_t r =
-        shoup_mul(nu, p1_op[lrow + i], p1_quot[lrow + i], q) +
-        reduce_4q(vb[sidx(i)], q);
-    c1[row + i] = r >= q ? r - q : r;
-  }
-  __syncthreads();  // every read of ntt(e1) is done before B is refilled
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) vb[sidx(i)] = pte[row + i];
-  __syncthreads();
-  ntt_row<R>(vb, opl, quotl, q, logn);
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const uint32_t r =
-        shoup_mul(va[sidx(i)], p0_op[lrow + i], p0_quot[lrow + i], q) +
-        reduce_4q(vb[sidx(i)], q);
-    c0[row + i] = r >= q ? r - q : r;
+// KA.  Row b of every limb: c1 = pk1 * ntt(u) + ntt(e1) and c0 = pk0 *
+// ntt(u) + ntt(pte) mod q, from the signed (B, n) u, e1 and the int64
+// (B, n) pte, mapped or reduced per limb as they are loaded.  A barrier
+// separates two transforms on the shared rows (ntt_regs's contract); nus,
+// after the rows, is each thread's own, so it needs none.
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads, kNuShared<R> ? 1 : 2)
+    ntt_asym_kernel(const long long* __restrict__ u,
+                    const long long* __restrict__ e1,
+                    const long long* __restrict__ pte,
+                    const long long* __restrict__ op,
+                    const long long* __restrict__ quot,
+                    const long long* __restrict__ qs,
+                    const long long* __restrict__ r0s,
+                    const long long* __restrict__ r1s,
+                    const long long* __restrict__ p0_op,
+                    const long long* __restrict__ p0_quot,
+                    const long long* __restrict__ p1_op,
+                    const long long* __restrict__ p1_quot,
+                    long long* __restrict__ c0, long long* __restrict__ c1,
+                    int L, int B, int logn) {
+  extern __shared__ uint32_t v[];
+  const int n = 1 << logn, t = threadIdx.x, T = blockDim.x;
+  uint32_t* nus = v + n + n / 8;
+  const int P0 = first_stages(logn);
+  const size_t brow = (size_t)blockIdx.x * n;
+  for (int l = 0; l < L; ++l) {
+    const uint32_t q = (uint32_t)qs[l];
+    const uint32_t r0 = (uint32_t)r0s[l], r1 = (uint32_t)r1s[l];
+    const size_t lrow = (size_t)l * n;
+    const size_t row = ((size_t)l * B + blockIdx.x) * n;
+    // Element j of the rows as the first pass holds it, mapped or reduced.
+    const auto load = [&](int w, int j) {
+      const long long s = __ldg((w == 0 ? u : w == 1 ? e1 : pte) + brow +
+                                pass_elem(j, P0, logn - P0, t, T));
+      return w == 2 ? reduce_pte(s, q, r0, r1) : signed_to_modq(s, q);
+    };
+    uint32_t nu[R];
+    if constexpr (!kNuShared<R>) {
+      uint32_t x[3][R];
+#pragma unroll
+      for (int w = 0; w < 3; ++w) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) x[w][j] = load(w, j);
+      }
+      ntt_regs<R, 3>(x, v, op + lrow, quot + lrow, q, logn);
+#pragma unroll
+      for (int j = 0; j < R; ++j) nu[j] = reduce_4q(x[0][j], q);
+      asym_store<R>(nu, nus, x[1], p1_op + lrow, p1_quot + lrow, c1 + row,
+                    q);
+      asym_store<R>(nu, nus, x[2], p0_op + lrow, p0_quot + lrow, c0 + row,
+                    q);
+      __syncthreads();  // v serves the next limb
+    } else {
+#pragma unroll 1
+      for (int w = 0; w < 3; ++w) {
+        uint32_t x[1][R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) x[0][j] = load(w, j);
+        ntt_regs<R, 1>(x, v, op + lrow, quot + lrow, q, logn);
+        if (w == 0) {
+#pragma unroll
+          for (int j = 0; j < R; ++j) nus[j * T + t] = reduce_4q(x[0][j], q);
+        } else {
+          asym_store<R>(nu, nus, x[0], (w == 1 ? p1_op : p0_op) + lrow,
+                        (w == 1 ? p1_quot : p0_quot) + lrow,
+                        (w == 1 ? c1 : c0) + row, q);
+        }
+        __syncthreads();  // v serves the next transform
+      }
+    }
   }
 }
 
@@ -405,21 +473,21 @@ cudaError_t dispatch_kn(const void* x, const void* op, const void* quot,
 }
 
 template <int R>
-cudaError_t launch_ka(const void* u, const void* e1, const void* pte,
-                      const void* op, const void* quot, const void* qs,
-                      const void* p0_op, const void* p0_quot,
-                      const void* p1_op, const void* p1_quot, void* c0,
-                      void* c1, int L, int B, int logn, cudaStream_t stream) {
-  const size_t smem = 2 * row_bytes(logn);
+cudaError_t launch_ka(const long long* u, const long long* e1,
+                      const long long* pte, const long long* op,
+                      const long long* quot, const long long* qs,
+                      const long long* r0s, const long long* r1s,
+                      const long long* p0_op, const long long* p0_quot,
+                      const long long* p1_op, const long long* p1_quot,
+                      long long* c0, long long* c1, int L, int B, int logn,
+                      cudaStream_t stream) {
+  const size_t smem = kNuShared<R> ? row_bytes(logn) + ((size_t)4 << logn)
+                                   : 3 * row_bytes(logn);
   const cudaError_t err = allow_smem(ntt_asym_kernel<R>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)B, (unsigned)L);
-  ntt_asym_kernel<R><<<grid, threads_for(logn), smem, stream>>>(
-      (const uint32_t*)u, (const uint32_t*)e1, (const uint32_t*)pte,
-      (const uint32_t*)op, (const uint32_t*)quot, (const uint32_t*)qs,
-      (const uint32_t*)p0_op, (const uint32_t*)p0_quot,
-      (const uint32_t*)p1_op, (const uint32_t*)p1_quot, (uint32_t*)c0,
-      (uint32_t*)c1, B, logn);
+  ntt_asym_kernel<R><<<(unsigned)B, threads_for(logn), smem, stream>>>(
+      u, e1, pte, op, quot, qs, r0s, r1s, p0_op, p0_quot, p1_op, p1_quot, c0,
+      c1, L, B, logn);
   return cudaGetLastError();
 }
 
@@ -452,24 +520,31 @@ extern "C" int sek_ntt_from_pte(const void* pte, const void* op,
                                 out, L, B, logn, (cudaStream_t)stream);
 }
 
-// u, e1, pte, c0, c1: (L, B, n) u32, inputs below 4q; op, quot: (L, n)
-// forward root tables; qs: (L,); p0_op/p0_quot and p1_op/p1_quot: (L, n)
-// Shoup pairs of pk0 and pk1.  n = 2^logn in [8, 16384].
-extern "C" int sek_ntt_asym(const void* u, const void* e1, const void* pte,
-                            const void* op, const void* quot, const void* qs,
-                            const void* p0_op, const void* p0_quot,
-                            const void* p1_op, const void* p1_quot, void* c0,
-                            void* c1, int L, int B, int logn, void* stream) {
+// u, e1, pte: (B, n) int64, u in {-1, 0, 1}, e1 in [-63, 63], pte any
+// value; op, quot, p0_op/p0_quot, p1_op/p1_quot: (L, n) int64, the
+// forward root tables and the Shoup pairs of pk0 and pk1; qs, r0s, r1s:
+// (L,) int64; c0, c1: (L, B, n) int64 in [0, q).  n = 2^logn in [8,
+// 16384].
+extern "C" int sek_ntt_asym_from_signed(
+    const void* u, const void* e1, const void* pte, const void* op,
+    const void* quot, const void* qs, const void* r0s, const void* r1s,
+    const void* p0_op, const void* p0_quot, const void* p1_op,
+    const void* p1_quot, void* c0, void* c1, int L, int B, int logn,
+    void* stream) {
   if (L <= 0 || B <= 0) return (int)cudaSuccess;
   if (logn < 3 || logn > 14) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const int R = (1 << logn) / threads_for(logn);
-  const cudaError_t err =
-      R == 8 ? launch_ka<8>(u, e1, pte, op, quot, qs, p0_op, p0_quot, p1_op,
-                            p1_quot, c0, c1, L, B, logn, st)
-      : R == 16 ? launch_ka<16>(u, e1, pte, op, quot, qs, p0_op, p0_quot,
-                                p1_op, p1_quot, c0, c1, L, B, logn, st)
-                : launch_ka<32>(u, e1, pte, op, quot, qs, p0_op, p0_quot,
-                                p1_op, p1_quot, c0, c1, L, B, logn, st);
-  return (int)err;
+  const auto args = [&](auto launch) {
+    return launch((const long long*)u, (const long long*)e1,
+                  (const long long*)pte, (const long long*)op,
+                  (const long long*)quot, (const long long*)qs,
+                  (const long long*)r0s, (const long long*)r1s,
+                  (const long long*)p0_op, (const long long*)p0_quot,
+                  (const long long*)p1_op, (const long long*)p1_quot,
+                  (long long*)c0, (long long*)c1, L, B, logn,
+                  (cudaStream_t)stream);
+  };
+  if (R == 8) return (int)args(launch_ka<8>);
+  if (R == 16) return (int)args(launch_ka<16>);
+  return (int)args(launch_ka<32>);
 }

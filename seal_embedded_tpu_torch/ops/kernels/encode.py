@@ -1,5 +1,7 @@
 """Wrapper of kernel KE (``csrc/encode.cu``): bit-exact CKKS encode in
-IEEE f64, one thread block per batch row.
+IEEE f64, one thread block per batch row up to n = 4096 and a cluster of
+two from n = 8192 (at 16384 the row's planes exceed a block's shared
+memory), in one launch at every degree.
 
 Replaces the TPU's software-f64 encode kernel (K5, encode_sf_fused).  On
 CPU tensors it runs the plain version, ``ops.encode.encode_tables``; on
@@ -17,14 +19,15 @@ from . import build
 
 launches = 0
 
-# Shared memory one block may use on Hopper (232,448 bytes): rows whose
-# re + im planes (16 bytes per coefficient) exceed it run in two halves.
-_MAX_SMEM = 232448
+_MAX_N = 16384
 
 
 def encode_f64(values, imap, tw_re, tw_im, scale_n: float):
     """values float32 (B, vlen <= n/2); imap int32 (n,); tw_re, tw_im
     float64 (n - 1,) (ops.encode.ifft_tables_flat); scale_n = scale / n.
+    On the card n runs from 8 to 16384: one CTA a row below n = 8192, a
+    cluster of two from it (at 8192 that measured a little faster than
+    one block a row on an H100, PERF.md).
     Returns (coeff int64 (B, n), ok bool (B,))."""
     global launches
     name = "encode_f64"
@@ -40,24 +43,20 @@ def encode_f64(values, imap, tw_re, tw_im, scale_n: float):
                   f"{name}: twiddles must be float64 (n - 1,)")
     if build.on_cpu(name, values, imap, tw_re, tw_im):
         return encode_tables(values, imap, tw_re, tw_im, scale_n)
+    build.require(8 <= n <= _MAX_N,
+                  f"{name}: the kernel takes n from 8 to {_MAX_N}, got {n}")
 
     B, vlen = values.shape
-    dev = values.device
-    coeff = torch.empty((B, n), dtype=torch.int64, device=dev)
-    ok = torch.empty((B,), dtype=torch.int32, device=dev)
-    nseg = 1 if 16 * n <= _MAX_SMEM else 2
-    scratch = ([torch.empty((B, n), dtype=torch.float64, device=dev)
-                for _ in range(2)] if nseg == 2 else [])
-    null = ctypes.c_void_p(None)
+    coeff = torch.empty((B, n), dtype=torch.int64, device=values.device)
+    ok = torch.empty((B,), dtype=torch.int32, device=values.device)
     fn = build.entry("sek_encode_f64",
                      [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                      + [ctypes.c_void_p] * 3
-                     + [ctypes.c_double, ctypes.c_int, ctypes.c_int]
-                     + [ctypes.c_void_p] * 5)
-    sc = [build.ptr(t) for t in scratch] or [null, null]
+                     + [ctypes.c_double, ctypes.c_int]
+                     + [ctypes.c_void_p] * 3)
     build.check(fn(build.ptr(values), B, vlen, build.ptr(imap),
                    build.ptr(tw_re), build.ptr(tw_im), float(scale_n),
-                   n.bit_length() - 1, nseg, build.ptr(coeff), build.ptr(ok),
-                   *sc, build.stream(coeff)), name)
+                   n.bit_length() - 1, build.ptr(coeff), build.ptr(ok),
+                   build.stream(coeff)), name)
     launches += 1
     return coeff, ok.bool()

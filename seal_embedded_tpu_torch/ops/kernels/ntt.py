@@ -4,10 +4,11 @@ KN, ``ntt_fwd``: forward NTT of (L, B, n) rows, and
 ``ntt_sym_from_pte``: the NTT fused with the symmetric c0 epilogue,
 straight from the int64 plaintext + error, reduced per limb as it is
 loaded; they replace K3 ntt_coeff_major and K4 ntt_coeff_major_fused_sym.
-Both read and write int64 as the callers hold it.  KA, ``ntt_asym``: the
-three NTTs and the public-key combine of the asymmetric path; replaces K6
-ntt_coeff_major_fused_asym (its I/O is u32, copied in the wrapper).  All
-keep the JAX package's (L, B, n) layout at the boundary and count their
+KA, ``ntt_asym_from_signed``: the three NTTs and the public-key combine
+of the asymmetric path, straight from the signed u, e1 and the int64 pte,
+mapped or reduced per limb as they are loaded; replaces K6
+ntt_coeff_major_fused_asym.  All read and write int64 as the callers
+hold it, keep the JAX package's (L, B, n) output layout and count their
 launches apart (``launches``, ``pte_launches``, ``asym_launches``).  On
 CPU tensors each runs its plain version (``ops.ntt``); on CUDA tensors it
 launches its kernel or raises.  The kernels take n from 8 to 16384.
@@ -19,8 +20,8 @@ import ctypes
 
 import torch
 
-from ..modarith import MASK32
-from ..ntt import ntt_asym_plain, ntt_limbs, ntt_sym_from_pte_plain
+from ..ntt import (ntt_asym_from_signed_plain, ntt_limbs,
+                   ntt_sym_from_pte_plain)
 from . import build
 
 launches = 0
@@ -105,39 +106,44 @@ def ntt_sym_from_pte(pte, a, s_op, s_quot, op, quot, q, r0, r1):
     return out
 
 
-def ntt_asym(u, e1, pte, op, quot, q, p0_op, p0_quot, p1_op, p1_quot):
-    """The asymmetric per-limb step: returns (c0, c1) with
-    c0 = pk0 * ntt(u) + ntt(pte) and c1 = pk1 * ntt(u) + ntt(e1) mod q.
+def ntt_asym_from_signed(u, e1, pte, op, quot, q, r0, r1, p0_op, p0_quot,
+                         p1_op, p1_quot):
+    """The asymmetric per-limb step for every limb: returns (c0, c1) with
+    c0 = pk0 * ntt(u) + ntt(reduce_pte(pte)) and c1 = pk1 * ntt(u) +
+    ntt(e1) mod q, u and e1 mapped x < 0 -> x + q per limb on load.
 
-    u, e1, pte: int64 (L, B, n) u32 values below 4q; op, quot: int64 (L, n)
-    root tables; q: int64 (L,); p0_op, p0_quot, p1_op, p1_quot: int64
-    (L, n), the Shoup pairs of pk0 and pk1.
+    u: int64 (B, n) in {-1, 0, 1}; e1: int64 (B, n) in [-63, 63]; pte:
+    int64 (B, n), any value; op, quot: int64 (L, n) root tables; q, r0,
+    r1: int64 (L,), the moduli and the low and high words of
+    floor(2^64 / q); p0_op, p0_quot, p1_op, p1_quot: int64 (L, n), the
+    Shoup pairs of pk0 and pk1.  Returns int64 (L, B, n) in [0, q).
     """
     global asym_launches
-    name = "ntt_asym"
+    name = "ntt_asym_from_signed"
     rows = [u, e1, pte]
     pk = [p0_op, p0_quot, p1_op, p1_quot]
-    tensors = rows + [op, quot, q] + pk
+    tensors = rows + [op, quot, q, r0, r1] + pk
     build.require(all(t.dtype == torch.int64 for t in tensors),
                   f"{name}: all inputs must be int64")
-    build.require(u.dim() == 3, f"{name}: u must be (L, B, n)")
-    L, B, n = u.shape
+    build.require(u.dim() == 2 and q.dim() == 1,
+                  f"{name}: u must be (B, n), q (L,)")
+    B, n = u.shape
+    L = q.shape[0]
     _check_degree(name, n)
-    build.require(all(t.shape == u.shape for t in rows),
-                  f"{name}: u, e1 and pte must have one (L, B, n) shape")
+    build.require(all(t.shape == (B, n) for t in rows),
+                  f"{name}: u, e1 and pte must have one (B, n) shape")
     build.require(all(t.shape == (L, n) for t in [op, quot] + pk)
-                  and q.shape == (L,),
-                  f"{name}: tables and pk pairs must be (L, n), q (L,)")
+                  and r0.shape == r1.shape == (L,),
+                  f"{name}: tables and pk pairs must be (L, n), q/r0/r1 (L,)")
     if build.on_cpu(name, *tensors):
-        return ntt_asym_plain(*tensors)
+        return ntt_asym_from_signed_plain(*tensors)
 
     _check_kernel_degree(name, n)
-    i32 = [t.to(torch.int32) for t in tensors]
-    c0, c1 = (torch.empty((L, B, n), dtype=torch.int32, device=u.device)
+    c0, c1 = (torch.empty((L, B, n), dtype=torch.int64, device=u.device)
               for _ in range(2))
-    fn = build.entry("sek_ntt_asym", [ctypes.c_void_p] * 12
+    fn = build.entry("sek_ntt_asym_from_signed", [ctypes.c_void_p] * 14
                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    build.check(fn(*map(build.ptr, i32 + [c0, c1]), L, B, n.bit_length() - 1,
-                   build.stream(c0)), name)
+    build.check(fn(*map(build.ptr, tensors + [c0, c1]), L, B,
+                   n.bit_length() - 1, build.stream(c0)), name)
     asym_launches += 1
-    return c0.to(torch.int64) & MASK32, c1.to(torch.int64) & MASK32
+    return c0, c1

@@ -1,5 +1,6 @@
 """Batched negacyclic NTT on torch tensors: the plain versions of kernels
-KN (plain and from pte) and KA (``ops/kernels/ntt.py``), and the inverse,
+KN (plain and from pte) and KA (from the signed rows,
+``ops/kernels/ntt.py``), and the inverse,
 on-the-fly and pointwise transforms the JAX package keeps outside its
 kernels.
 
@@ -23,6 +24,7 @@ from ..config import barrett_quotient, bitrev, find_ntt_root
 from ..io.serialize import intt_root_table
 from .modarith import (MASK32, Mod, add_mod, mul_mod, mul_mod_shoup_lazy,
                        reduce_pte_i64, shift_result, sub_mod)
+from .sampling import ternary_to_modq_any
 
 
 @lru_cache(maxsize=64)
@@ -121,13 +123,29 @@ def asym_epilogue(nu, other, p_op, p_quot, q):
 
 
 def ntt_asym_plain(u, e1, pte, op, quot, q, p0_op, p0_quot, p1_op, p1_quot):
-    """The plain version of kernel KA: three NTTs and the two pk combines,
-    c0 = pk0 * ntt(u) + ntt(pte) and c1 = pk1 * ntt(u) + ntt(e1) mod q.
+    """Three NTTs and the two pk combines, c0 = pk0 * ntt(u) + ntt(pte)
+    and c1 = pk1 * ntt(u) + ntt(e1) mod q, of rows already in [0, 4q).
     Shapes as ntt_limbs and asym_epilogue; returns (c0, c1)."""
     nu = ntt_limbs(u, op, quot, q)
     c1 = asym_epilogue(nu, ntt_limbs(e1, op, quot, q), p1_op, p1_quot, q)
     c0 = asym_epilogue(nu, ntt_limbs(pte, op, quot, q), p0_op, p0_quot, q)
     return c0, c1
+
+
+def ntt_asym_from_signed_plain(u, e1, pte, op, quot, q, r0, r1, p0_op,
+                               p0_quot, p1_op, p1_quot):
+    """The plain version of kernel KA: ntt_asym_plain of u and e1 mapped
+    x < 0 -> x + q and of reduce_pte(pte), per limb.
+
+    u, e1, pte: int64 (B, n), u in {-1, 0, 1}, e1 in [-63, 63]; op, quot,
+    p0_op, p0_quot, p1_op, p1_quot: int64 (L, n); q, r0, r1: int64 (L,).
+    Returns (c0, c1) int64 (L, B, n)."""
+    mod = Mod(q[:, None, None], r0[:, None, None], r1[:, None, None], None)
+    shape = (q.shape[0],) + tuple(u.shape)
+    return ntt_asym_plain(ternary_to_modq_any(u[None], mod).expand(shape),
+                          ternary_to_modq_any(e1[None], mod).expand(shape),
+                          reduce_pte_i64(pte[None], mod), op, quot, q, p0_op,
+                          p0_quot, p1_op, p1_quot)
 
 
 def ntt(x, q: int):

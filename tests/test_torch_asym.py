@@ -46,14 +46,16 @@ def _t(a):
 
 
 def test_signed_to_modq_vs_jax():
+    """The port's one fold of small signed values, ternary_to_modq_any
+    (what KA applies to e1 on load), against the JAX _signed_to_modq."""
     rng = np.random.default_rng(4)
     x = rng.integers(-63, 64, (3, 50)).astype(np.int32)
     for q in (int(jcfg.PRIMES_27BIT[0]), int(jcfg.PRIMES_30BIT[2])):
         want = np.asarray(jasym._signed_to_modq(jnp.asarray(x), q))
-        assert np.array_equal(tasym._signed_to_modq(_t(x), q).numpy(),
+        assert np.array_equal(tsp.ternary_to_modq_any(_t(x), q).numpy(),
                               want.astype(np.int64))
     qs = torch.tensor(jcfg.PRIMES_30BIT[:3], dtype=torch.int64)[:, None, None]
-    got = tasym._signed_to_modq(_t(x)[None], qs)
+    got = tsp.ternary_to_modq_any(_t(x)[None], qs)
     assert got.shape == (3, 3, 50)
     for l in range(3):
         want = np.asarray(jasym._signed_to_modq(jnp.asarray(x),

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from seal_embedded_tpu.config import PRIMES_27BIT, Parms
+from seal_embedded_tpu.config import PRIMES_27BIT, Parms, default_parms
 from seal_embedded_tpu.golden import encode as golden_encode
 from seal_embedded_tpu.ops import encode as jenc
 from seal_embedded_tpu_torch.convert import parms_from_jax
@@ -28,9 +28,12 @@ def _values(n, rows, seed):
     return values
 
 
-@pytest.mark.parametrize("n", [256, 1024, 4096])
+@pytest.mark.parametrize("n", [256, 1024, 4096, 8192, 16384])
 def test_encode_vs_jax_f64_and_sf(n):
-    jparms = Parms(degree=n, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)
+    """Three rows at each degree, 8192 and 16384 included (the degrees KE
+    runs in one block per row and as a cluster of two)."""
+    moduli = PRIMES_27BIT[:2] if n <= 4096 else default_parms(n, 2).moduli
+    jparms = Parms(degree=n, moduli=moduli, scale=2.0 ** 20)
     parms = parms_from_jax(jparms)
     values = _values(n, 3, n)
     got, ok = tenc.encode(torch.as_tensor(values), parms)
@@ -97,7 +100,14 @@ def test_encode_any_modes_and_wrapper_checks():
     with pytest.raises(ValueError):
         tenc.encode_any(v, parms, "f32")
     imap, tw_re, tw_im = tenc.table_tensors(256)
+    sn = tenc.scale_over_n(parms)
+    got, ok = encode_f64(v, imap, tw_re, tw_im, sn)
+    assert ok.all() and torch.equal(got, ref)
     with pytest.raises(ValueError):
         encode_f64(v.double(), imap, tw_re, tw_im, 1.0)
     with pytest.raises(ValueError):
         encode_f64(torch.zeros((1, 129)), imap, tw_re, tw_im, 1.0)
+    with pytest.raises(ValueError):
+        encode_f64(v, imap.long(), tw_re, tw_im, 1.0)
+    with pytest.raises(ValueError):
+        encode_f64(v, imap, tw_re[:-1], tw_im, 1.0)

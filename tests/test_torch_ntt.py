@@ -1,7 +1,8 @@
 """Port's plain NTT (the CPU path of kernel KN) vs seal_embedded_tpu.ops.ntt,
 its fused symmetric epilogue and its fused entry from the int64 pte vs
 the JAX fused-sym Pallas kernel (after the JAX reduce_pte_i64), and the
-plain version of kernel KA vs the JAX fused-asym Pallas kernel (K6), the
+plain version of kernel KA, from the signed u, e1 and the int64 pte, vs
+the JAX mapping, reduce_pte_i64 and fused-asym Pallas kernel (K6), the
 kernels in interpret mode, bit for bit."""
 
 import jax
@@ -10,14 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from seal_embedded_tpu.ckks import asym as jasym
 from seal_embedded_tpu.config import PRIMES_27BIT, default_parms
 from seal_embedded_tpu.ops import modarith as jma
 from seal_embedded_tpu.ops import ntt as jntt
+from seal_embedded_tpu.ops import sampling as jsp
 from seal_embedded_tpu.ops.kernels.ntt import (ntt_coeff_major_fused_asym,
                                                ntt_coeff_major_fused_sym)
 from seal_embedded_tpu_torch.ops import modarith as tma
 from seal_embedded_tpu_torch.ops import ntt as tntt
-from seal_embedded_tpu_torch.ops.kernels.ntt import (ntt_asym, ntt_fwd,
+from seal_embedded_tpu_torch.ops.kernels.ntt import (ntt_asym_from_signed,
+                                                     ntt_fwd,
                                                      ntt_sym_from_pte)
 
 torch.set_num_threads(2)
@@ -192,48 +196,63 @@ def test_ntt_wrapper_checks():
         ntt_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), op, quot, q)
 
 
-def _asym_case(moduli, L, n, B, seed):
-    """u, e1, pte coefficient-major (L, n, B) in [0, q], q at a few
-    entries; pk0, pk1 (L, n) in [0, q)."""
+def _asym_case(moduli, B, n, seed):
+    """Signed u (every value of {-1, 0, 1}) and e1 (+-63 and 0 at the head
+    of every row), edge int64 pte, all (B, n); pk0, pk1 (L, n) in [0, q)."""
     rng = np.random.default_rng(seed)
-    rows = []
-    for _ in range(3):
-        x = np.stack([rng.integers(0, q + 1, (n, B), dtype=np.int64)
-                      for q in moduli])
-        x[:, :4, :] = np.array(moduli)[:, None, None]
-        rows.append(x)
+    u = rng.integers(-1, 2, (B, n), dtype=np.int64)
+    u[:, :3] = [-1, 0, 1]
+    e1 = rng.integers(-63, 64, (B, n), dtype=np.int64)
+    e1[:, :3] = [-63, 0, 63]
+    pte = edge_pte(rng, moduli, B, n)
     pk = [np.stack([rng.integers(0, q, n, dtype=np.int64) for q in moduli])
           for _ in range(2)]
-    return rows, pk
+    return (u, e1, pte), pk
 
 
-def _asym_args(rows, pk, n, moduli):
-    """The KA wrapper's arguments from coefficient-major numpy inputs."""
+def _asym_args(rows, pk, moduli):
+    """The KA wrapper's arguments from the numpy inputs."""
+    n = rows[0].shape[1]
     op, quot, q = _tables(n, moduli)
-    lbn = [torch.as_tensor(x).transpose(1, 2).contiguous() for x in rows]
+    mods = tma.modpack(moduli)
     pairs = []
     for p in pk:
         p = torch.as_tensor(p)
         pairs += [p, tma.shoup_quotient(p, q[:, None])]
-    return (*lbn, op, quot, q, *pairs)
+    return (*map(torch.as_tensor, rows), op, quot, q, mods.r0, mods.r1,
+            *pairs)
+
+
+def _asym_jax(rows, pk, moduli):
+    """The JAX package's asym step (ckks/asym.py:135-163): u through
+    ternary_to_modq_any, e1 through _signed_to_modq, pte through
+    reduce_pte_i64, per limb, then the fused-asym kernel in interpret mode,
+    coefficient-major; returned as (L, B, n) each."""
+    u, e1, pte = rows
+    mapped = [np.stack([np.asarray(f(jnp.asarray(x), q)) for q in moduli])
+              for f, x in ((jsp.ternary_to_modq_any, u.astype(np.int32)),
+                           (jasym._signed_to_modq, e1.astype(np.int32)),
+                           (jma.reduce_pte_i64, pte))]
+    cm = [jnp.asarray(x.transpose(0, 2, 1).astype(np.uint32)) for x in mapped]
+    c0, c1 = ntt_coeff_major_fused_asym(
+        *cm, *(jnp.asarray(p.astype(np.uint32)) for p in pk), moduli,
+        interpret=True)
+    return [np.asarray(c).astype(np.int64).transpose(0, 2, 1)
+            for c in (c0, c1)]
 
 
 def test_ntt_asym_plain_vs_pallas_interpret():
-    """c0 = pk0 * ntt(u) + ntt(pte), c1 = pk1 * ntt(u) + ntt(e1) at L=2,
-    n=256, B=128, against the JAX fused-asym kernel in interpret mode."""
+    """c0 = pk0 * ntt(u) + ntt(reduce_pte(pte)), c1 = pk1 * ntt(u) +
+    ntt(e1) at L=2, n=256, B=128 from the signed u, e1 and edge int64 pte:
+    KA's wrapper (its plain version on the CPU) against the JAX mapping,
+    reduce_pte_i64 and fused-asym kernel in interpret mode."""
     moduli = tuple(int(q) for q in PRIMES_27BIT[:2])
-    L, n, B = 2, 256, 128
-    rows, pk = _asym_case(moduli, L, n, B, 5)
-    u32 = [jnp.asarray(a.astype(np.uint32)) for a in rows + pk]
-    wc0, wc1 = ntt_coeff_major_fused_asym(*u32, moduli, interpret=True)
-
-    args = _asym_args(rows, pk, n, moduli)
-    plain = tntt.ntt_asym_plain(*args)
-    wrapped = ntt_asym(*args)
-    for name, want, p, w in zip(("c0", "c1"), (wc0, wc1), plain, wrapped):
-        assert torch.equal(p, w), name
-        assert np.array_equal(p.transpose(1, 2).numpy(),
-                              np.asarray(want).astype(np.int64)), name
+    rows, pk = _asym_case(moduli, 128, 256, 5)
+    args = _asym_args(rows, pk, moduli)
+    got = ntt_asym_from_signed(*args)
+    assert torch.equal(got[0], tntt.ntt_asym_from_signed_plain(*args)[0])
+    for name, g, want in zip(("c0", "c1"), got, _asym_jax(rows, pk, moduli)):
+        assert np.array_equal(g.numpy(), want), name
 
 
 def test_asym_epilogue_matches_barrett():
@@ -257,18 +276,19 @@ def test_asym_epilogue_matches_barrett():
 
 
 def test_ntt_asym_wrapper_checks():
+    """The KA wrapper refuses an int32 row, (L, B, n) rows, a pk pair of
+    the wrong shape and a non-contiguous row."""
     moduli = tuple(int(q) for q in PRIMES_27BIT[:2])
-    rows, pk = _asym_case(moduli, 2, 64, 2, 1)
-    args = list(_asym_args(rows, pk, 64, moduli))
-    with pytest.raises(ValueError):
-        ntt_asym(args[0].to(torch.int32), *args[1:])
-    with pytest.raises(ValueError):
-        ntt_asym(args[0], args[1][:, :1], *args[2:])
-    with pytest.raises(ValueError):
-        ntt_asym(*args[:6], args[6][:, :32], *args[7:])
-    with pytest.raises(ValueError):
-        ntt_asym(args[0].transpose(1, 2).contiguous().transpose(1, 2),
-                 *args[1:])
+    rows, pk = _asym_case(moduli, 2, 64, 1)
+    args = list(_asym_args(rows, pk, moduli))
+    u = args[0]
+    ntt_asym_from_signed(*args)
+    for i, bad in ((0, u.to(torch.int32)), (0, u[None].expand(2, 2, 64)),
+                   (1, args[1][None].expand(2, 2, 64).contiguous()),
+                   (8, args[8][:, :32]), (11, args[11][:1]), (6, args[6][:1]),
+                   (2, args[2].t().contiguous().t())):
+        with pytest.raises(ValueError):
+            ntt_asym_from_signed(*args[:i], bad, *args[i + 1:])
 
 
 _jax_intt = jax.jit(jntt.intt, static_argnums=1)
