@@ -50,9 +50,22 @@ line each:
    limb, peaks (a sym stream's may not exceed its batch's); the adapter's
    CRT verify of two of the card's ciphertexts, whole and with one
    coefficient of prime 2 flipped;
-6. the launch counters of each headline run, each 5b run and of the
-   calibration.
+6. the launch counters of each headline run, each 5b run, each phase 7
+   run and of the calibration;
+7. scale-out at world size 1 (one NCCL rank, ``parallel/``), at the
+   headline's shape: the limb-sharded sym encryptor on a (1, 1) mesh
+   (equal to the limb-scan parallel layout, decrypted), the limb-sharded
+   asym one (golden rows, equal to ``AsymEncryptor``),
+   ``sym_encrypt_sharded`` (equal to ``sym_encrypt_batch``) and the
+   multi-host encryptor on (1, 1, 1), each timed beside its
+   single-device path (alternated pairs, device busy, peak above the
+   inputs), and the sym path's two collectives alone; the limb-sharded
+   sym at n = 16384, L = 13; the coefficient-sharded NTT in both plans
+   at n = 4096 and 16384 against KN; the config sweep at degree 4096 on
+   the card; a ``CheckpointedRunner`` restart of the sym headline,
+   bit-exact.
 
+Phase 7 runs before phase 6 prints, so its runs are in phase 6's list.
 Imports no jax and nothing of the JAX package.  Any failure raises and
 exits non-zero; there is no CPU fallback.  The last line is one JSON
 object with "ok" and the device; the line before it lists the kernels.
@@ -62,6 +75,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import statistics
 import subprocess
 import tempfile
 import time
@@ -69,8 +83,8 @@ import time
 import numpy as np
 import torch
 
-from perf_stages import kernel_alone_ms
-from seal_embedded_tpu_torch import adapter, api
+from perf_stages import kernel_alone_ms, timeline
+from seal_embedded_tpu_torch import adapter, api, sweep
 from seal_embedded_tpu_torch.ckks import stream
 from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor, gen_pk_batch
 from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
@@ -94,6 +108,15 @@ from seal_embedded_tpu_torch.ops.kernels import calibrate as k_calib
 from seal_embedded_tpu_torch.ops.kernels import encode as k_encode
 from seal_embedded_tpu_torch.ops.kernels import keccak as k_keccak
 from seal_embedded_tpu_torch.ops.kernels import ntt as k_ntt
+from seal_embedded_tpu_torch.parallel import comm, launch
+from seal_embedded_tpu_torch.parallel import multihost as mh
+from seal_embedded_tpu_torch.parallel.coeff_ntt import ntt_coeff_sharded
+from seal_embedded_tpu_torch.parallel.limbwise import (
+    make_asym_limb_sharded_encryptor, make_limb_sharded_encryptor)
+from seal_embedded_tpu_torch.parallel.mesh import (make_mesh,
+                                                  sym_encrypt_sharded)
+from seal_embedded_tpu_torch.utils.checkpoint import (CheckpointJournal,
+                                                      CheckpointedRunner)
 from seal_embedded_tpu_torch.utils.timing import cuda_time_ms
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1046,6 +1069,205 @@ def phase_api_stream(dev, smi):
           "card: passes, and fails with one coefficient of prime 2 flipped")
     return runs
 
+DEEP_N, DEEP_L, DEEP_B = 16384, 13, 64
+COEFF_ROWS = 64
+SWEEP_DEGREE, SWEEP_BATCH = 4096, 16
+
+
+def require_same(name, got, want, keys=("c0", "c1", "pte", "pt", "ok")):
+    for key in keys:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"{name}: {key} differs from the "
+                                 "single-device path")
+
+
+def paired_cuda_ms(fn, other, pairs=TIME_ITERS):
+    """Median CUDA-event ms of fn() and of other(), timed in alternation
+    (pair i runs fn first when i is even, other first when it is odd), so
+    that the host's drift between calls falls on both alike."""
+    fns = (fn, other)
+    times = ([], [])
+    for f in fns:
+        f(), f()
+    for i in range(pairs):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[j]()
+            end.record()
+            end.synchronize()
+            times[j].append(start.elapsed_time(end))
+    return tuple(statistics.median(t) for t in times)
+
+
+def report_sharded(tag, verified, fn, single, peak, single_peak, counts,
+                   comms, smi, shape=None):
+    ms, single_ms = paired_cuda_ms(fn, single)
+    busy, single_busy = (timeline(f)["busy_ms"] for f in (fn, single))
+    n, nprimes, batch = shape or (N, L, B)
+    print(f"[7 scale-out] {tag} n={n} L={nprimes} B={batch} at world size "
+          f"1: {verified}; {ms:.3f} ms/batch vs single device "
+          f"{single_ms:.3f} ms (CUDA events, medians of {TIME_ITERS} "
+          f"alternated pairs), device busy {busy:.3f} vs "
+          f"{single_busy:.3f} ms/batch (perf_stages.timeline), peak above "
+          f"the inputs "
+          f"{peak / 2 ** 20:.1f} vs {single_peak / 2 ** 20:.1f} MiB; "
+          f"launches {counts}; collectives {comms}; {smi}")
+
+
+def phase_scale_out(dev, smi):
+    """Phase 7: parallel/ at world size 1, one rank on `dev` (NCCL on the
+    card, gloo on the CPU), in a group destroyed at the end.  Returns the
+    launch counts of each run."""
+    parms = default_parms(N, L)
+    gold = load_golden("sym", N, L)
+    values, share, err = headline_inputs(gold)
+    args = state_to_device(values, gold["sk"], share, err, dev)
+    agold = load_golden("asym", N, L)
+    avalues, _, aseeds = headline_inputs(agold)
+    aargs = asym_state_to_device(avalues, aseeds, dev)
+    apk = pk_to_device(agold["pk0"], agold["pk1"], dev)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    runs = {}
+    t0 = time.perf_counter()
+
+    def sharded_run(tag, fn, single, check, verified, shape=None):
+        comm.counts = {}
+        out, runs[tag], peak = peak_run(fn)
+        comms = {k: tuple(v) for k, v in comm.counts.items()}
+        want, _, single_peak = peak_run(single)
+        check(out, want, tag)
+        del out, want
+        report_sharded(tag, verified, fn, single, peak, single_peak,
+                       runs[tag], comms, smi, shape)
+
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp, \
+            launch.process_group(1, 0, str(pathlib.Path(tmp) / "store"),
+                                 dev.type):
+        mesh = make_mesh(1, 1, dev.type)
+        hmesh = mh.make_host_mesh(1, 1, dev.type)
+        parallel = LimbscanEncryptor(parms, "parallel", device=dev)
+
+        def check_parallel(out, want, tag):
+            require_same(tag, out, want)
+            check_decrypts(out, args[1], parms, tag)
+
+        sym = make_limb_sharded_encryptor(mesh, parms)
+        sharded_run("limb-sharded sym", lambda: sym(*args),
+                    lambda: parallel(*args), check_parallel,
+                    "torch.equal to LimbscanEncryptor(parallel), "
+                    "decrypt_batch gives pte back (canonical, lazy)")
+
+        asym = make_asym_limb_sharded_encryptor(mesh, parms)
+        single_asym = AsymEncryptor(parms, *apk, dev)
+
+        def check_asym(out, want, tag):
+            check_golden_rows(out, agold, tag)
+            require_same(tag, out, want)
+        sharded_run("limb-sharded asym", lambda: asym(aargs[0], *apk,
+                                                       aargs[1]),
+                    lambda: single_asym(*aargs), check_asym,
+                    f"{golden_verified(agold)}, torch.equal to "
+                    "AsymEncryptor")
+
+        ses = sym_encrypt_sharded(mesh, parms)
+
+        def check_batch(out, want, tag):
+            check_golden_rows(out, gold, tag)
+            require_same(tag, out, want)
+        sharded_run("sym_encrypt_sharded", lambda: ses(*args),
+                    lambda: sym_encrypt_batch(*args, parms),
+                    check_batch, f"{golden_verified(gold)}, torch.equal to "
+                    "sym_encrypt_batch")
+
+        multi = mh.make_multihost_encryptor(hmesh, parms)
+        sharded_run("multihost (1, 1, 1)",
+                    lambda: multi(*mh.shard_inputs(hmesh, *args)),
+                    lambda: parallel(*args), check_parallel,
+                    "torch.equal to LimbscanEncryptor(parallel), "
+                    "decrypt_batch gives pte back")
+
+        # The sym pipeline's two collectives alone, at the headline's shape.
+        rows = torch.zeros((B, N + 17), dtype=torch.int64, device=dev)
+        flags = torch.ones(B, dtype=torch.bool, device=dev)
+        group = mesh.get_group("limb")
+
+        def collectives():
+            comm.all_gather_rows(rows, group)
+            comm.all_and(flags, group)
+        host_ms, _ = host_time_ms(
+            lambda: (collectives(), torch.cuda.synchronize()), TIME_ITERS)
+        print(f"[7 scale-out] the limb all-gather ({B} x {N + 17} int64) "
+              f"and the ok reduce alone at world size 1: "
+              f"{cuda_time_ms(collectives, TIME_ITERS):.3f} ms (CUDA "
+              f"events), host clock {host_ms:.3f} ms to a finished card "
+              f"(medians of {TIME_ITERS}); {smi}")
+        del rows, flags
+
+        dparms = default_parms(DEEP_N, DEEP_L)
+        rng = np.random.default_rng(3)
+        dargs = state_to_device(
+            rng.uniform(-1, 1, (DEEP_B, DEEP_N // 2)).astype(np.float32),
+            rng.integers(-1, 2, DEEP_N), rng.integers(0, 2 ** 32, (DEEP_B, 16)),
+            rng.integers(0, 2 ** 32, (DEEP_B, 16)), dev)
+        deep = make_limb_sharded_encryptor(mesh, dparms)
+        deep_single = LimbscanEncryptor(dparms, "parallel", device=dev)
+        sharded_run("deep limb-sharded sym", lambda: deep(*dargs),
+                    lambda: deep_single(*dargs),
+                    lambda out, want, tag: require_same(tag, out, want),
+                    "torch.equal to LimbscanEncryptor(parallel)",
+                    (DEEP_N, DEEP_L, DEEP_B))
+
+        # The coefficient-sharded NTT against KN, on values below 4q.
+        for n, lim in ((N, L), (DEEP_N, DEEP_L)):
+            q = default_parms(n, lim).moduli[0]
+            op, quot = (torch.as_tensor(t.astype(np.int64)[None], device=dev)
+                        for t in ntt_ops.ntt_tables(n, q))
+            x = torch.as_tensor(rng.integers(0, 4 * q, (COEFF_ROWS, n)),
+                                device=dev)
+            want = k_ntt.ntt_fwd(x[None].contiguous(), op, quot,
+                                 torch.tensor([q], device=dev))[0]
+            for variant in ("staged", "4step"):
+                comm.counts = {}
+                got = ntt_coeff_sharded(mesh, n, q, "data", variant)(x)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"coefficient-sharded NTT "
+                                         f"{variant} n={n} differs from KN")
+                print(f"[7 scale-out] ntt_coeff_sharded {variant} n={n} "
+                      f"({COEFF_ROWS} rows) at world size 1: bit-equal to "
+                      f"KN ntt_fwd; collectives {comm.counts}")
+
+        result, runs["sweep"], _ = counted_run(lambda: sweep.run_sweep(
+            SWEEP_DEGREE, SWEEP_BATCH, device=dev))
+        if not result.ok:
+            raise AssertionError("sweep: configs failed: " + ", ".join(
+                r[0] for r in result.results if not r[1]))
+        print(f"[7 scale-out] sweep at degree {SWEEP_DEGREE}, batch "
+              f"{SWEEP_BATCH} on {dev}: {len(result.results)} of "
+              f"{len(result.results)} configs pass")
+
+        # A restart of the sym headline from the journal, bit-exact.
+        encryptor = SymEncryptor(parms, dev)
+        with tempfile.TemporaryDirectory(dir=scratch) as jdir:
+            first = CheckpointedRunner(CheckpointJournal(jdir), encryptor)
+            out0 = first.run(0, *args)
+            first.journal.begin(1, {"values": values, "share_words": share,
+                                    "err_words": err})
+            outs, runs["checkpoint restart"], _ = counted_run(
+                lambda: CheckpointedRunner(CheckpointJournal(jdir),
+                                           encryptor).resume(args[1]))
+        if list(outs) != [1]:
+            raise AssertionError(f"checkpoint: resumed {list(outs)}")
+        require_same("checkpoint restart", outs[1], out0)
+        check_golden_rows(outs[1], gold, "checkpoint restart")
+        print(f"[7 scale-out] CheckpointedRunner restart of the sym "
+              f"headline (B={B}): the journaled batch re-runs bit-exact, "
+              f"{golden_verified(gold)}")
+    print(f"[7 scale-out] phase 7 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
 
 def main():
     smi, sm_hz = phase_device()
@@ -1069,6 +1291,10 @@ def main():
                                    else sym_path)
     for tag, counts in phase_api_stream(dev, smi).items():
         runs[tag] = (counts, asym_path if "asym" in tag else sym_path)
+    for tag, counts in phase_scale_out(dev, smi).items():
+        runs[tag] = (counts, {"sym_encrypt_sharded": table_path,
+                              "sweep": sym_path + ("ntt_asym",)}.get(
+            tag, asym_path if "asym" in tag else sym_path))
     runs["calibration"] = (calib_counts, ("calib",))
     for path, (counts, needed) in runs.items():
         missing = [k for k in needed if counts[k] < 1]

@@ -19,6 +19,8 @@ module is the reference path of the tests.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -32,13 +34,14 @@ from ..ops.ntt import ntt_tables_stacked
 from .fast import EncryptorBase
 
 
-
 class AsymEncryptor(EncryptorBase):
     """asym_encrypt_fused for one parameter set and one public key, with
     its tables (see EncryptorBase) and pk0, pk1 and their Shoup quotients
     (pk0_quot, pk1_quot) resident on `device` as buffers.
 
-    pk0, pk1: int64 (L, n) u32 values in [0, q), NTT form.
+    pk0, pk1: int64 (L, n) u32 values in [0, q), NTT form; the encryptor
+    keeps copies, so a later in-place change of the caller's tensors
+    leaves pk and its quotients consistent.
     forward(values f32 (B, <= n/2), seed_words int64 (B, 16) u32 private
     PRNG seeds) returns a dict with c0, c1 int64 (L, B, n) u32 values, pt
     and pte int64 (B, n) and ok bool (B,), the layouts of the JAX function.
@@ -48,8 +51,9 @@ class AsymEncryptor(EncryptorBase):
         super().__init__(parms, device)
         qv = self.q[:, None]
         for name, pk in (("pk0", pk0), ("pk1", pk1)):
-            pk = torch.as_tensor(pk, device=device).to(torch.int64)
-            self.register_buffer(name, pk.contiguous())
+            pk = torch.as_tensor(pk, device=device).to(
+                torch.int64, copy=True).contiguous()
+            self.register_buffer(name, pk)
             self.register_buffer(f"{name}_quot",
                                  ma.shoup_quotient(pk, qv).contiguous())
 
@@ -123,3 +127,55 @@ def asym_encrypt_batch(values, pk0, pk1, seed_words, parms: Parms,
     asym_encrypt_fused, so the same module serves it."""
     return asym_encrypt_fused(values, pk0, pk1, seed_words, parms,
                               encode_mode)
+
+
+class PerKeyEncryptor:
+    """fn(values, pk0, pk1, seed_words) -> dict on one (parms, device):
+    the AsymEncryptor of the last public key given is kept and rebuilt
+    only when another key arrives.  The key is compared by value with the
+    encryptor's own copies, so a caller's key tensor changed in place
+    counts as another key."""
+
+    def __init__(self, parms: Parms, device: torch.device):
+        self.parms = parms
+        self.device = device
+        self._enc = None
+
+    def encryptor(self, pk0, pk1) -> AsymEncryptor:
+        """The AsymEncryptor of pk0, pk1 (int64 or uint32 (L, n))."""
+        pk = tuple(p.to(self.device, torch.int64)
+                   if isinstance(p, torch.Tensor) else torch.as_tensor(
+                       np.asarray(p).astype(np.int64), device=self.device)
+                   for p in (pk0, pk1))
+        enc = self._enc  # read once: another thread may replace it
+        if enc is None or not (torch.equal(pk[0], enc.pk0)
+                               and torch.equal(pk[1], enc.pk1)):
+            enc = AsymEncryptor(self.parms, *pk, self.device)
+            self._enc = enc
+        return enc
+
+    def __call__(self, values, pk0, pk1, seed_words):
+        return self.encryptor(pk0, pk1)(values, seed_words)
+
+
+@lru_cache(maxsize=16)
+def _per_key_encryptor(parms: Parms, device: torch.device):
+    return PerKeyEncryptor(parms, device)
+
+
+def make_asym_encryptor(parms: Parms, encode_mode: str = "f64",
+                        device=CUDA):
+    """asym_encrypt_batch bound to its parameters, as the JAX factory's
+    jitted function: fn(values, pk0, pk1, seed_words) -> dict, pk given
+    per call (int64 or uint32 (L, n)).  One function per (parms, device)
+    serves every call; it keeps the AsymEncryptor of the last pk.  Inputs
+    on `device` (the card unless told otherwise)."""
+    check_encode_mode(encode_mode)
+    return _per_key_encryptor(parms, torch.device(device))
+
+
+def make_fused_asym_encryptor(parms: Parms, encode_mode: str = "dd",
+                              device=CUDA):
+    """asym_encrypt_fused bound to its parameters; the same bits and the
+    same function as make_asym_encryptor's."""
+    return make_asym_encryptor(parms, encode_mode, device)

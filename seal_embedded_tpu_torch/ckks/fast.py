@@ -17,6 +17,8 @@ so the same module is the reference path of the tests.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 from torch import nn
@@ -76,13 +78,14 @@ class SymEncryptor(EncryptorBase):
         super().__init__(parms, device)
         self.queue_cap = sp.queue_cap_for(parms.degree, self.moduli)
 
-    def ntt_secret(self, sk_signed):
-        """ntt(s) per limb: (L, n), s mapped {-1, 0, 1} -> {q-1, 0, 1}."""
-        qv = self.q[:, None, None]
+    def ntt_secret(self, sk_signed, limbs=slice(None)):
+        """ntt(s) of the limbs `limbs` (a slice of the per-limb buffers):
+        (l, n), s mapped {-1, 0, 1} -> {q-1, 0, 1}."""
+        q = self.q[limbs]
         sk = sk_signed.to(torch.int64).reshape(1, 1, -1)
-        s = torch.where(sk < 0, qv - 1, sk)                # (L, 1, n)
-        return ntt_fwd(s.contiguous(), self.ntt_op, self.ntt_quot,
-                       self.q)[:, 0, :]
+        s = torch.where(sk < 0, q[:, None, None] - 1, sk)   # (l, 1, n)
+        return ntt_fwd(s.contiguous(), self.ntt_op[limbs],
+                       self.ntt_quot[limbs], q)[:, 0, :]
 
     def forward(self, values, sk_signed, share_words, err_words):
         pt, pte, ok = self.encode_with_error(values, err_words)
@@ -136,3 +139,18 @@ def sym_encrypt_fused(values, sk_signed, share_words, err_words,
     check_encode_mode(encode_mode)
     return SymEncryptor(parms, values.device)(
         values, sk_signed, share_words, err_words)
+
+
+@lru_cache(maxsize=16)
+def _sym_encryptor(parms: Parms, device: torch.device) -> SymEncryptor:
+    return SymEncryptor(parms, device)
+
+
+def make_fused_encryptor(parms: Parms, encode_mode: str = "dd",
+                         device=CUDA):
+    """sym_encrypt_fused bound to its parameters, as the JAX factory's
+    jitted function: (values, sk_signed, share_words, err_words) -> dict.
+    One SymEncryptor per (parms, device) serves every call; inputs on
+    `device` (the card unless told otherwise)."""
+    check_encode_mode(encode_mode)
+    return _sym_encryptor(parms, torch.device(device))

@@ -64,6 +64,22 @@ def ifft_root_tables(n: int) -> tuple[tuple[np.ndarray, np.ndarray], ...]:
     return tuple(out)
 
 
+def ifft_root_tables_from_file(path: str, n: int):
+    """Per-round IFFT root tables from an adapter-format roots file (the
+    SE_IFFT_LOAD_FULL path, fileops.c:226-255): the file's roots from
+    index 1 on, in (round, group) order (fft.c:108-126), split into the
+    rounds of ifft_root_tables, bit for bit."""
+    from ..io.serialize import read_ifft_roots
+    raw = read_ifft_roots(path, n)
+    re_all, im_all = raw[0::2], raw[1::2]
+    out = []
+    idx, h = 1, n // 2
+    for _ in range(n.bit_length() - 1):
+        out.append((re_all[idx:idx + h].copy(), im_all[idx:idx + h].copy()))
+        idx, h = idx + h, h // 2
+    return tuple(out)
+
+
 @lru_cache(maxsize=32)
 def fft_root_tables(n: int) -> tuple[tuple[np.ndarray, np.ndarray], ...]:
     """Per-round forward (decode) roots (fft.c:183-213): round r has

@@ -21,6 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ...convert import CUDA
 from ...utils.timing import cuda_time_ms
 from ..calibrate import MIXES, check_mix, mix_plain, ops_per_iter
 from ..modarith import MASK32
@@ -63,7 +64,7 @@ def calib_mix(x, mix: str, iters: int):
     return out.to(torch.int64) & MASK32
 
 
-def mix_input(nchain: int = 8, tiles: int = 1, device=None):
+def mix_input(nchain: int = 8, tiles: int = 1, device=CUDA):
     """The mix's input, int64 (tiles, nchain, 1024): tile 0 is the JAX
     input, ``default_rng(0).integers(0, 2**31, (nchain, 8, 128))``
     (calibrate.py:149-151); further tiles are further draws of the same
@@ -75,7 +76,7 @@ def mix_input(nchain: int = 8, tiles: int = 1, device=None):
 
 
 def run_mix(mix: str, iters: int = 200_000, nchain: int = 8, tiles: int = 1,
-            device=None):
+            device=CUDA):
     """A thunk computing the mix, as the JAX run_mix returns one; total
     source-convention op count = iters * ops_per_iter(mix, nchain) * 1024
     per tile."""

@@ -67,6 +67,39 @@ def counter_zero(batch_shape, device=None):
                        device=device)
 
 
+def counter_from_int(batch_shape, value: int, device=None):
+    """Counter pairs starting at an arbitrary u64 value (the parallel
+    layout's limb i starts at i * stride)."""
+    # Filled on the device: a tensor made from a Python list is a blocking
+    # copy, which would stall the limb loop that calls this per limb.
+    c = torch.empty(tuple(batch_shape) + (2,), dtype=torch.int64,
+                    device=device)
+    c[..., 0] = value & MASK32
+    c[..., 1] = (value >> 32) & MASK32
+    return c
+
+
+def counter_overflowed(before, after):
+    """True where the u64 counter wrapped between two points of a stream
+    (the reference's `counter == 0` check after its increment, rng.h:85)."""
+    return ((after[..., 1] < before[..., 1])
+            | ((after[..., 1] == before[..., 1])
+               & (after[..., 0] < before[..., 0])))
+
+
+def reseed_on_overflow(seed_words, before, after, fresh_seed_words):
+    """The reference's reseed on a counter wrap (rng.h:85-91), at the API
+    layer: where a stream's counter wrapped, take the fresh seed words and
+    reset the counter to 0.
+
+    seed_words, fresh_seed_words: (..., 16); before, after: (..., 2).
+    Returns (seed_words, counters, reseeded mask)."""
+    wrapped = counter_overflowed(before, after)
+    seeds = torch.where(wrapped[..., None], fresh_seed_words, seed_words)
+    ctr = torch.where(wrapped[..., None], torch.zeros_like(after), after)
+    return seeds, ctr, wrapped
+
+
 def _c_add(c, inc):
     """c (..., 2) + inc (int or int64 tensor < 2^32), carrying into hi."""
     lo = c[..., 0] + inc
@@ -188,13 +221,14 @@ def sample_uniform(seed_words, counter, n: int, q,
 
 def sample_uniform_limbs(seed_words, moduli, n: int,
                          queue_cap: int | None = None,
-                         counter_stride: int | None = None):
+                         counter_stride: int | None = None, first: int = 0):
     """One uniform polynomial per modulus, in the order of `moduli`.
 
     With counter_stride None the stream's counter chains from limb to limb
     (the reference, seal_embedded.c:145-213); otherwise limb i starts at
-    counter i * counter_stride (the "parallel" layout).  seed_words: int64
-    (B, 16).  Returns (a int64 (L, B, n), ok (B,))."""
+    counter (first + i) * counter_stride (the "parallel" layout; `first`
+    is the chain index of moduli[0] when they are a part of the chain).
+    seed_words: int64 (B, 16).  Returns (a int64 (L, B, n), ok (B,))."""
     B = seed_words.shape[0]
     dev = seed_words.device
     counter = counter_zero((B,), dev)
@@ -202,7 +236,8 @@ def sample_uniform_limbs(seed_words, moduli, n: int,
     a = []
     for i, q in enumerate(moduli):
         if counter_stride is not None:
-            counter = _c_add(counter_zero((B,), dev), i * counter_stride)
+            counter = counter_from_int((B,), (first + i) * counter_stride,
+                                       dev)
         a_l, counter, ok_u = sample_uniform(seed_words, counter, n, q,
                                             queue_cap=queue_cap)
         a.append(a_l)

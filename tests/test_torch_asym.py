@@ -103,6 +103,51 @@ def test_asym_encrypt_vs_jax(jax_asym_case, entry):
                               np.asarray(want[k]).astype(np.int64)), k
 
 
+@pytest.mark.parametrize("factory", ["make_asym_encryptor",
+                                     "make_fused_asym_encryptor"])
+def test_asym_factories_vs_jax(jax_asym_case, factory):
+    """The factories with the JAX call signature fn(values, pk0, pk1,
+    seed_words): one function per (parms, device), pk per call (numpy
+    uint32 here), its encryptor rebuilt only for another key."""
+    (values, pk0, pk1, seeds), want = jax_asym_case
+    parms = parms_from_jax(P1K)
+    fn = getattr(tasym, factory)(parms, "f64", device="cpu")
+    assert getattr(tasym, factory)(parms, "sf", device="cpu") is fn
+    v, s = asym_state_to_device(values, seeds, device="cpu")
+    got = fn(v, pk0, pk1, s)
+    for k in ("c0", "c1", "pt", "pte", "ok"):
+        assert np.array_equal(got[k].numpy(),
+                              np.asarray(want[k]).astype(got[k].numpy().dtype))
+    enc = fn.encryptor(pk0, pk1)
+    assert fn.encryptor(*pk_to_device(pk0, pk1, device="cpu")) is enc
+    other = fn(v, pk1, pk0, s)
+    assert fn.encryptor(pk0, pk1) is not enc
+    assert not torch.equal(other["c0"], got["c0"])
+    with pytest.raises(ValueError):
+        getattr(tasym, factory)(parms, "fast", device="cpu")
+
+
+@pytest.mark.parametrize("factory", ["make_asym_encryptor",
+                                     "make_fused_asym_encryptor"])
+def test_asym_factory_key_changed_in_place(jax_asym_case, factory):
+    """A key tensor the caller refreshes with copy_ between two calls is a
+    new key: the second call matches the JAX output for the new key."""
+    (values, pk0, pk1, seeds), want = jax_asym_case
+    fn = getattr(tasym, factory)(parms_from_jax(P1K), device="cpu")
+    v, s = asym_state_to_device(values, seeds, device="cpu")
+    fn.encryptor(pk0, pk1)          # so the next call builds from t0, t1
+    t0, t1 = pk_to_device(pk1, pk0, device="cpu")
+    old = fn(v, t0, t1, s)
+    new0, new1 = pk_to_device(pk0, pk1, device="cpu")
+    t0.copy_(new0)
+    t1.copy_(new1)
+    got = fn(v, t0, t1, s)
+    assert not torch.equal(old["c0"], got["c0"])
+    for k in ("c0", "c1", "pt", "pte", "ok"):
+        assert np.array_equal(got[k].numpy(),
+                              np.asarray(want[k]).astype(got[k].numpy().dtype))
+
+
 def test_asym_encryptor_buffers_and_modes(jax_asym_case):
     (values, pk0, pk1, seeds), _ = jax_asym_case
     parms = parms_from_jax(P1K)
@@ -110,6 +155,7 @@ def test_asym_encryptor_buffers_and_modes(jax_asym_case):
     enc = tasym.AsymEncryptor(parms, t0, t1, device="cpu")
     q = torch.tensor(P1K.moduli, dtype=torch.int64)[:, None]
     assert torch.equal(enc.pk0, t0) and torch.equal(enc.pk1, t1)
+    assert enc.pk0.data_ptr() != t0.data_ptr()   # its own copy
     assert torch.equal(enc.pk0_quot, tma.shoup_quotient(t0, q))
     assert torch.equal(enc.pk1_quot, tma.shoup_quotient(t1, q))
     assert {"pk0", "pk0_quot", "pk1", "pk1_quot", "ntt_op"} <= dict(

@@ -21,8 +21,8 @@ def test_mix_vs_jax_interpret(mix, iters, nchain):
     output is the JAX output; mix_plain and the KC wrapper's CPU path
     agree on every tile."""
     want = np.asarray(jcal.run_mix(mix, iters, nchain=nchain)())
-    x = kcal.mix_input(nchain, tiles=2)
-    got = kcal.run_mix(mix, iters, nchain=nchain, tiles=2)()
+    x = kcal.mix_input(nchain, tiles=2, device="cpu")
+    got = kcal.run_mix(mix, iters, nchain=nchain, tiles=2, device="cpu")()
     assert got.shape == (2, nchain, 1024)
     assert np.array_equal(got[0].numpy(),
                           want.reshape(nchain, 1024).astype(np.int64))
@@ -32,7 +32,7 @@ def test_mix_vs_jax_interpret(mix, iters, nchain):
 
 def test_mix_input_tile0_is_jax_input():
     jx = np.random.default_rng(0).integers(0, 2 ** 31, (8, 8, 128))
-    x = kcal.mix_input(8, tiles=3)
+    x = kcal.mix_input(8, tiles=3, device="cpu")
     assert x.dtype == torch.int64 and x.shape == (3, 8, 1024)
     assert np.array_equal(x[0].numpy(), jx.reshape(8, 1024))
 
@@ -56,11 +56,12 @@ def test_bad_mix_arguments_raise():
             kcal.run_mix("ntt", 8, nchain=nchain)
     with pytest.raises(ValueError):
         tcal.ops_per_iter("fft")
-    x = kcal.mix_input(8)
+    x = kcal.mix_input(8, device="cpu")
     with pytest.raises(ValueError):
         kcal.calib_mix(x, "keccak", 12)           # not a multiple of 8
     with pytest.raises(ValueError):
-        kcal.calib_mix(kcal.mix_input(17), "keccak", 8)   # > 16 chains
+        kcal.calib_mix(kcal.mix_input(17, device="cpu"), "keccak",
+                       8)                                 # > 16 chains
     with pytest.raises(ValueError):
         kcal.calib_mix(x.to(torch.int32), "keccak", 8)
     with pytest.raises(ValueError):

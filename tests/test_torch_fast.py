@@ -53,6 +53,27 @@ def test_sym_encrypt_matches_jax_fused():
                               np.asarray(want[k]).astype(np.int64)), k
 
 
+def test_make_fused_encryptor_vs_jax():
+    """The factory with the JAX call signature: one SymEncryptor per
+    (parms, device) for every encode mode, equal to the JAX factory's
+    jitted function."""
+    from seal_embedded_tpu.ckks.fast import make_fused_encryptor as jax_make
+    from seal_embedded_tpu_torch.ckks.fast import make_fused_encryptor
+
+    values, sk, share, err = _inputs(3, P1K.degree, seed=5)
+    want = jax_make(P1K, "f64")(*(jnp.asarray(a)
+                                  for a in (values, sk, share, err)))
+    p = parms_from_jax(P1K)
+    fn = make_fused_encryptor(p, "f64", device="cpu")
+    assert make_fused_encryptor(p, device="cpu") is fn
+    got = fn(*state_to_device(values, sk, share, err, device="cpu"))
+    for k in ("c0", "c1", "pte", "pt", "ok"):
+        assert np.array_equal(got[k].numpy(),
+                              np.asarray(want[k]).astype(got[k].numpy().dtype))
+    with pytest.raises(ValueError):
+        make_fused_encryptor(p, "fast", device="cpu")
+
+
 @pytest.mark.parametrize("n,nprimes", [(1024, 1), (2048, 1), (4096, 3)])
 def test_sym_encryptor_golden(n, nprimes):
     data = np.load(REPO / "tests" / f"golden_sym_{n}_{nprimes}.npz")

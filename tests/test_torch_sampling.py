@@ -189,3 +189,51 @@ def test_ternary_to_modq_vs_jax():
     got = tsp.ternary_to_modq_any(torch.as_tensor(signed)[None],
                                   torch.as_tensor(qs))
     assert got.shape == (3, 2, 64) and np.array_equal(got.numpy(), want)
+
+
+def test_reseed_on_overflow_vs_jax():
+    """The reseed on a u64 counter wrap (rng.h:85-91), after
+    tests/test_ops.py's case: a wrapped stream takes the fresh seed words
+    and counter 0, the others are untouched; the same as the JAX one."""
+    before = np.array([[0xFFFFFFFF, 0xFFFFFFFF], [5, 0], [7, 3], [9, 3]])
+    after = np.array([[2, 0], [9, 0], [7, 2], [1, 3]])
+    seeds = np.arange(64).reshape(4, 16)
+    fresh = np.full((4, 16), 77)
+    want = jsp.reseed_on_overflow(_j(seeds), _j(before), _j(after),
+                                  _j(fresh))
+    got = tsp.reseed_on_overflow(*(torch.as_tensor(a) for a in (
+        seeds, before, after, fresh)))
+    assert got[2].tolist() == [True, False, True, True]
+    assert tsp.counter_overflowed(torch.as_tensor(before),
+                                  torch.as_tensor(after)).tolist() == \
+        np.asarray(jsp.counter_overflowed(_j(before), _j(after))).tolist()
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w).astype(g.numpy().dtype))
+    assert got[0][0].tolist() == [77] * 16 and got[1][0].tolist() == [0, 0]
+    assert got[0][1].tolist() == list(range(16, 32))
+
+
+@pytest.mark.parametrize("value", [(7 << 32) | 5, 2 ** 32 - 1, 2 ** 64 - 1,
+                                   3 * (1 << 20)])
+def test_counter_from_int_vs_jax(value):
+    """u64 starting counters, and an offset carried across 2^32, after
+    tests/test_ops.py's case."""
+    got = tsp.counter_from_int((3,), value)
+    assert got.shape == (3, 2) and got.dtype == torch.int64
+    assert np.array_equal(got.numpy(),
+                          _np(jsp.counter_from_int((3,), value)))
+    assert np.array_equal(tsp._c_add(got, 0xFFFFFFFB).numpy(),
+                          _np(jsp._c_add(jsp.counter_from_int((3,), value),
+                                         jnp.uint32(0xFFFFFFFB))))
+
+
+def test_uniform_limbs_first_limb_index():
+    """Limb i of a sub-chain starting at chain index `first` draws from
+    counter (first + i) * stride: the tail of the whole chain's draws."""
+    moduli = PRIMES_27BIT[:3]
+    seeds = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 2 ** 32, (2, 16)))
+    whole, ok = tsp.sample_uniform_limbs(seeds, moduli, 256, 40, 1 << 20)
+    tail, ok_t = tsp.sample_uniform_limbs(seeds, moduli[1:], 256, 40,
+                                          1 << 20, first=1)
+    assert torch.equal(tail, whole[1:]) and bool(ok.all() and ok_t.all())
