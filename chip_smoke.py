@@ -11,9 +11,10 @@ port of ``ckks/asym.py``); the limb-scan encryptor in its reference,
 parallel and reverse-order forms (``ckks/limbwise.py``) and the per-prime
 ``sym_encrypt_batch`` (``ckks/sym.py``), with ``expand_c1`` and
 ``decrypt_batch`` as their checks; the public API (``api.py``) and the
-per-prime streams (``ckks/stream.py``) on the same inputs; and the op-mix
-calibration that gives every kernel its measured ceiling.  Phases, one
-line each:
+per-prime streams (``ckks/stream.py``) on the same inputs; the compiled
+factories (``graphs.py``: each captured as a CUDA graph per input
+signature and replayed); and the op-mix calibration that gives every
+kernel its measured ceiling.  Phases, one line each:
 
 1. device: the card, its power limit, nvcc's version;
 2. build: the kernels from ``seal_embedded_tpu_torch/csrc/`` (sm_90a);
@@ -51,7 +52,7 @@ line each:
    CRT verify of two of the card's ciphertexts, whole and with one
    coefficient of prime 2 flipped;
 6. the launch counters of each headline run, each 5b run, each phase 7
-   run and of the calibration;
+   and phase 8 run and of the calibration;
 7. scale-out at world size 1 (one NCCL rank, ``parallel/``), at the
    headline's shape: the limb-sharded sym encryptor on a (1, 1) mesh
    (equal to the limb-scan parallel layout, decrypted), the limb-sharded
@@ -65,7 +66,24 @@ line each:
    the card; a ``CheckpointedRunner`` restart of the sym headline,
    bit-exact.
 
-Phase 7 runs before phase 6 prints, so its runs are in phase 6's list.
+8. compiled entry points (``graphs.py``), at the headline's shape: every
+   compiled factory (the fused sym encryptor, the limb-scan encryptor in
+   its four forms, the from-pte encryptor, the c1 expander, the asym
+   encryptor with the key among the graph's inputs, the decryptor
+   canonical and lazy, the decoder, the API's range check) against its
+   eager module on the same inputs (golden rows where the layout is the
+   reference's), a second call on other inputs (another key for asym)
+   that leaves the first call's outputs unchanged, a B = 512 call that
+   captures a second graph; launches per replay against eager's per call
+   (counters), the graph's kernel nodes against the kernels an eager call
+   runs and the port's kernels a replay runs (profiler); compiled against
+   eager in alternated pairs (CUDA events, host clock, device busy, idle
+   share, peak above the inputs) and the first call's time; KE's 2-CTA
+   cluster launch inside a graph (n = 16384, L = 13, golden rows); the
+   API's compiled functions replayed in phase 5b.
+
+Phases 7 and 8 run before phase 6 prints, so their runs are in phase 6's
+list; phases 4, 5 and 5b call the factories, so they capture graphs too.
 Imports no jax and nothing of the JAX package.  Any failure raises and
 exits non-zero; there is no CPU fallback.  The last line is one JSON
 object with "ok" and the device; the line before it lists the kernels.
@@ -73,6 +91,7 @@ object with "ok" and the device; the line before it lists the kernels.
 
 from __future__ import annotations
 
+import collections
 import json
 import pathlib
 import statistics
@@ -83,15 +102,21 @@ import time
 import numpy as np
 import torch
 
-from perf_stages import kernel_alone_ms, timeline
-from seal_embedded_tpu_torch import adapter, api, sweep
+from perf_stages import PORT_KERNELS, kernel_alone_ms, timeline, trace
+from seal_embedded_tpu_torch import adapter, api, graphs, sweep
 from seal_embedded_tpu_torch.ckks import stream
-from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor, gen_pk_batch
-from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
+from seal_embedded_tpu_torch.ckks.asym import (AsymEncryptor, gen_pk_batch,
+                                              make_asym_encryptor)
+from seal_embedded_tpu_torch.ckks.fast import (SymEncryptor,
+                                              make_fused_encryptor)
 from seal_embedded_tpu_torch.ckks.limbwise import (LimbscanEncryptor,
                                                   expand_c1,
+                                                  make_c1_expander,
+                                                  make_from_pte_encryptor,
                                                   make_limbscan_encryptor)
-from seal_embedded_tpu_torch.ckks.sym import decrypt_batch, sym_encrypt_batch
+from seal_embedded_tpu_torch.ckks.sym import (Decryptor, decrypt_batch,
+                                             make_decryptor,
+                                             sym_encrypt_batch)
 from seal_embedded_tpu_torch.config import Parms, default_parms
 from seal_embedded_tpu_torch.convert import (asym_state_to_device,
                                              pk_to_device, state_to_device,
@@ -99,12 +124,14 @@ from seal_embedded_tpu_torch.convert import (asym_state_to_device,
 from seal_embedded_tpu_torch.io import network, serialize
 from seal_embedded_tpu_torch.ops import calibrate as cal
 from seal_embedded_tpu_torch.ops import encode as enc
+from seal_embedded_tpu_torch.ops.encode import Decoder, make_decoder
 from seal_embedded_tpu_torch.ops import keccak as kc
 from seal_embedded_tpu_torch.ops import modarith as ma
 from seal_embedded_tpu_torch.ops import ntt as ntt_ops
 from seal_embedded_tpu_torch.ops import sampling as sp
 from seal_embedded_tpu_torch.ops.kernels import build
 from seal_embedded_tpu_torch.ops.kernels import calibrate as k_calib
+from seal_embedded_tpu_torch.ops.kernels import counters
 from seal_embedded_tpu_torch.ops.kernels import encode as k_encode
 from seal_embedded_tpu_torch.ops.kernels import keccak as k_keccak
 from seal_embedded_tpu_torch.ops.kernels import ntt as k_ntt
@@ -175,21 +202,12 @@ F64_OPS_PER_COEFF = 2
 INT_OPS_PER_UNIT = {"keccak": 4152, "ntt": 4}
 INT_OPS_PER_MIX_CHAIN = {"keccak": 3, "ntt": 2}
 
-# Launch counters of the kernel wrappers: name -> (module, attribute).
-COUNTERS = {"keccak": (k_keccak, "launches"),
-            "keccak_cbd": (k_keccak, "cbd_launches"),
-            "ntt": (k_ntt, "launches"), "ntt_pte": (k_ntt, "pte_launches"),
-            "ntt_asym": (k_ntt, "asym_launches"),
-            "encode": (k_encode, "launches"), "calib": (k_calib, "launches")}
-
-
-def reset_counts():
-    for module, attr in COUNTERS.values():
-        setattr(module, attr, 0)
-
-
-def read_counts():
-    return {k: getattr(module, attr) for k, (module, attr) in COUNTERS.items()}
+# The kernels each path must launch (the names of ops/kernels/counters.py):
+# sym's c0 comes from KN's from-pte entry, sym_encrypt_batch's from KN
+# unfused and a torch combine.
+SYM_PATH = ("keccak", "keccak_cbd", "ntt", "ntt_pte", "encode")
+TABLE_PATH = ("keccak", "keccak_cbd", "ntt", "encode")
+ASYM_PATH = ("keccak", "keccak_cbd", "ntt_asym", "encode")
 
 
 def seed_bytes(tag: int) -> bytes:
@@ -573,7 +591,7 @@ def phase_calibrate(dev, smi, sm_hz, rows):
     # The ceilings: the highest rate over the tile counts, each call
     # doing the same work.
     torch.cuda.synchronize()
-    reset_counts()
+    counters.reset()
     best = {}
     for per_sm in CALIB_BLOCKS_PER_SM:
         t = per_sm * sms
@@ -586,7 +604,7 @@ def phase_calibrate(dev, smi, sm_hz, rows):
             if rate > best.get(mix, (0,))[0]:
                 best[mix] = (rate, iters, t, ms)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = counters.read()
     for mix, (rate, iters, t, ms) in best.items():
         print(f"[3b calibrate] ceiling {mix}: {rate / 1e9:.1f} Gop/s "
               f"(source-convention u32 ops; {iters} iters, {t} tiles, "
@@ -651,14 +669,11 @@ def load_golden(kind, n, nprimes):
     return gold
 
 
-def check_golden_rows(out, gold, name):
+def check_golden_rows(out, gold, name, keys=("c0", "c1", "pt", "pte")):
     G = gold["v"].shape[0]
-    for key in ("c0", "c1"):
-        got = out[key][:, :G].cpu().numpy()
-        if not np.array_equal(got, gold[key]):
-            raise AssertionError(f"{name}: {key} differs from the golden file")
-    for key in ("pt", "pte"):
-        if not np.array_equal(out[key][:G].cpu().numpy(), gold[key]):
+    for key in keys:
+        got = (out[key][:, :G] if key in ("c0", "c1") else out[key][:G])
+        if not np.array_equal(got.cpu().numpy(), gold[key]):
             raise AssertionError(f"{name}: {key} differs from the golden file")
     if not bool(out["ok"].all()):
         raise AssertionError(f"{name}: ok is False")
@@ -760,10 +775,10 @@ def counted_run(fn):
     reset: (its output, the counts, the peak)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    counters.reset()
     out = fn()
     torch.cuda.synchronize()
-    return out, read_counts(), torch.cuda.max_memory_allocated()
+    return out, counters.read(), torch.cuda.max_memory_allocated()
 
 
 def phase_headline_sym(dev, smi):
@@ -1269,6 +1284,347 @@ def phase_scale_out(dev, smi):
     return runs
 
 
+# Phase 8: the compiled entry points (graphs.py).
+CU_GRAPH_NODE_KERNEL, CU_GRAPH_NODE_MEMCPY, CU_GRAPH_NODE_MEMSET = 0, 1, 2
+SMALL_B = 512
+
+
+def graph_node_kinds(graph) -> dict:
+    """Kernel, memcpy, memset and other nodes of a captured CUDA graph,
+    read with libcuda's cuGraphGetNodes from CUDAGraph.raw_cuda_graph()."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(g, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cu.cuGraphGetNodes(g, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    names = {CU_GRAPH_NODE_KERNEL: "kernel", CU_GRAPH_NODE_MEMCPY: "memcpy",
+             CU_GRAPH_NODE_MEMSET: "memset"}
+    kinds = dict.fromkeys(("kernel", "memcpy", "memset", "other"), 0)
+    kind = ctypes.c_int()
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds[names.get(kind.value, "other")] += 1
+    return kinds
+
+
+def traced_kinds(fn, calls=4, traces=3) -> dict:
+    """Kernels (the port's among them), memcpys and memsets the device ran
+    in one call of fn: the most common count over `calls` calls in one
+    profiler trace, each between marker kernels (torch.cuda._sleep's spin
+    kernel).  A profiler trace can drop events (in this script's runs,
+    the first one, and once all of them), so a lead marker goes first, a
+    count seen once is not taken, and a trace that leaves no count seen
+    twice is taken again, up to `traces` in all."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        torch.cuda._sleep(1000)
+        for _ in range(calls):
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+    seen = []
+    for _ in range(traces):
+        evs = trace(run)
+        marks = [i for i, e in enumerate(evs) if "spin_kernel" in e[2]]
+        per_call = []
+        for a, b in zip(marks, marks[1:]):
+            kinds = dict.fromkeys(("kernel", "port", "memcpy", "memset"), 0)
+            for _, _, name in evs[a + 1:b]:
+                if name.startswith("Memcpy"):
+                    kinds["memcpy"] += 1
+                elif name.startswith("Memset"):
+                    kinds["memset"] += 1
+                else:
+                    kinds["kernel"] += 1
+                    kinds["port"] += any(k in name for k in PORT_KERNELS)
+            if any(kinds.values()):          # not the lead marker's gap
+                per_call.append(tuple(kinds.items()))
+        common = collections.Counter(per_call).most_common(1)
+        if common and common[0][1] >= 2:
+            return dict(common[0][0])
+        seen.append(per_call)
+    raise RuntimeError(f"the profiler's counts per call disagree in "
+                       f"{traces} traces: {seen}")
+
+
+def require_outputs_equal(name, got, want):
+    """Every tensor of two outputs (a dict, a tuple or one tensor) equal."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    keys = got.keys() if isinstance(got, dict) else range(len(got))
+    for k in keys:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"{name}: {k} differs from the eager module")
+
+
+def clone_outputs(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: v.clone() for k, v in out.items()}
+    return tuple(v.clone() for v in out)
+
+
+def compiled_cases(dev):
+    """(tag, compiled function, eager counterpart running the same body on
+    a module of its own, headline args, other args, B = 512 args, check of
+    the headline output (its docstring says what it checks), the kernels
+    its path must launch)."""
+    parms = default_parms(N, L)
+    gold = load_golden("sym", N, L)
+    G = gold["v"].shape[0]
+    values, share, err = headline_inputs(gold)
+    args = state_to_device(values, gold["sk"], share, err, dev)
+    rng = np.random.default_rng(8)
+    args2 = state_to_device(
+        rng.uniform(-1, 1, (B, N // 2)).astype(np.float32), gold["sk"],
+        rng.integers(0, 2 ** 32, (B, 16)), rng.integers(0, 2 ** 32, (B, 16)),
+        dev)
+    small = (args[0][:SMALL_B], args[1], args[2][:SMALL_B],
+             args[3][:SMALL_B])
+    sym = SymEncryptor(parms, dev)
+    out1, out2 = sym(*args), sym(*args2)
+
+    def golden_sym(out, name):
+        """rows 0..5 golden"""
+        check_golden_rows(out, gold, name)
+
+    def decrypts(walk):
+        def check(out, name):
+            """decrypt_batch under the chain in walk order gives pte back"""
+            if not (bool(out["ok"].all()) and all(
+                    torch.equal(c, out["pte"]) for c in decrypt_batch(
+                        out["c0"], out["c1"], args[1], walk))):
+                raise AssertionError(f"{name}: ok or decrypt wrong")
+        return check
+    rev_parms = Parms(parms.degree, parms.moduli[::-1], parms.scale)
+
+    cases = [("fused sym", make_fused_encryptor(parms, device=dev), sym,
+              args, args2, small, golden_sym, SYM_PATH)]
+    for layout, order, check in (
+            ("reference", "forward", golden_sym),
+            ("parallel", "forward", decrypts(parms)),
+            ("reference", "reverse", decrypts(rev_parms)),
+            ("parallel", "reverse", decrypts(rev_parms))):
+        cases.append((f"limb-scan {layout} {order}",
+                      make_limbscan_encryptor(parms, layout, "sf", order,
+                                              device=dev),
+                      LimbscanEncryptor(parms, layout, order, dev), args,
+                      args2, small, check, SYM_PATH))
+
+    def golden_from_pte(out, name):
+        """rows 0..5 golden"""
+        check_golden_rows(out, gold, name, ("c0", "c1", "pte"))
+    cases.append(("from-pte", make_from_pte_encryptor(parms, device=dev),
+                  LimbscanEncryptor(parms, "reference", "forward",
+                                    dev).encrypt_pte,
+                  (out1["pte"], args[1], args[2]),
+                  (out2["pte"], args2[1], args2[2]),
+                  (out1["pte"][:SMALL_B], args[1], args[2][:SMALL_B]),
+                  golden_from_pte, ("keccak", "ntt", "ntt_pte")))
+
+    def golden_c1(out, name):
+        """c1 rows 0..5 golden"""
+        check_golden_rows({"c1": out[0], "ok": out[1]}, gold, name, ("c1",))
+    cases.append(("c1 expander", make_c1_expander(parms, device=dev),
+                  lambda w: expand_c1(w, parms), (args[2],), (args2[2],),
+                  (args[2][:SMALL_B],), golden_c1, ("keccak",)))
+
+    agold = load_golden("asym", N, L)
+    avalues, _, aseeds = headline_inputs(agold)
+    aargs = asym_state_to_device(avalues, aseeds, dev)
+    apk = pk_to_device(agold["pk0"], agold["pk1"], dev)
+    other_pk = pk_to_device(*(np.stack([rng.integers(0, q, N)
+                                        for q in parms.moduli])
+                              for _ in range(2)), dev)
+    ref = AsymEncryptor(parms, device=dev)
+
+    def asym_eager(v, pk0, pk1, seeds):
+        ref.set_key(pk0, pk1)
+        return ref(v, seeds)
+
+    def golden_asym(out, name):
+        """rows 0..5 golden"""
+        check_golden_rows(out, agold, name)
+    cases.append(("asym", make_asym_encryptor(parms, device=dev), asym_eager,
+                  (aargs[0], *apk, aargs[1]), (args2[0], *other_pk, args2[3]),
+                  (aargs[0][:SMALL_B], *apk, aargs[1][:SMALL_B]),
+                  golden_asym, ASYM_PATH))
+
+    def gives_pte(out, name):
+        """every limb gives pte back"""
+        if not all(torch.equal(c, out1["pte"]) for c in out):
+            raise AssertionError(f"{name}: does not give pte back")
+    for impl in ("canonical", "lazy"):
+        cases.append((f"decryptor {impl}",
+                      make_decryptor(parms, impl, device=dev),
+                      Decryptor(parms, impl, None, dev),
+                      (out1["c0"], out1["c1"], args[1]),
+                      (out2["c0"], out2["c1"], args[1]),
+                      (out1["c0"][:, :SMALL_B], out1["c1"][:, :SMALL_B],
+                       args[1]), gives_pte, ("ntt",)))
+
+    def decodes(out, name):
+        """within 1e-3 of the values"""
+        worst = float((out - args[0].double()).abs().max())
+        if worst > 1e-3:
+            raise AssertionError(f"{name}: decode error {worst}")
+    cases.append(("decoder", make_decoder(parms, dev), Decoder(parms, dev),
+                  (out1["pte"],), (out2["pte"],), (out1["pte"][:SMALL_B],),
+                  decodes, ()))
+
+    q = torch.tensor(parms.moduli, dtype=torch.int64,
+                     device=dev)[:, None, None]
+    bent = out2["c1"].clone()
+    bent[2, 7, 5] = parms.moduli[2]
+
+    def canonical(out, name):
+        """True on a canonical ciphertext, False with one c1 value = q"""
+        if not bool(out):
+            raise AssertionError(f"{name}: a canonical ciphertext fails")
+    cases.append(("range check", api._canon_graph(parms, dev),
+                  lambda c0, c1: (c0 < q).all() & (c1 < q).all(),
+                  (out1["c0"], out1["c1"]), (out2["c0"], bent),
+                  (out1["c0"][:, :SMALL_B], out1["c1"][:, :SMALL_B]),
+                  canonical, ()))
+    return cases
+
+
+def compiled_of(fn):
+    """The graphs.Graphed behind a compiled factory's function."""
+    return fn if isinstance(fn, graphs.Graphed) else fn.graphed
+
+
+def phase_compiled(dev, smi):
+    """Phase 8: every compiled factory at the headline's shape against its
+    eager module (bits, goldens, a second call, a B = 512 recapture,
+    launches and graph nodes, times), KE's cluster launch at n = 16384
+    through the compiled sym factory, and the API's compiled functions.
+    Returns the launch counts of one replay of each."""
+    t0 = time.perf_counter()
+    runs = {}
+    for (tag, fn, eager, args, args2, args_small, check,
+         needed) in compiled_cases(dev):
+        g = compiled_of(fn)
+        torch.cuda.synchronize()
+        g.entries.clear()   # earlier phases' graphs: this first call captures
+        base = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - start) * 1e3
+        resident = torch.cuda.memory_allocated() - base
+        require_outputs_equal(tag, out, eager(*args))
+        check(out, f"compiled {tag}")
+        kept = clone_outputs(out)
+        require_outputs_equal(f"{tag} second call", fn(*args2),
+                              eager(*args2))
+        require_outputs_equal(f"{tag} first output after a second call",
+                              out, kept)
+        require_outputs_equal(f"{tag} B={SMALL_B}", fn(*args_small),
+                              eager(*args_small))
+        if len(g.entries) != 2:
+            raise AssertionError(f"{tag}: {len(g.entries)} entries after "
+                                 f"B={B} and B={SMALL_B} calls, want 2")
+        del out, kept
+        replay, replay_counts, peak = peak_run(lambda: fn(*args))
+        del replay
+        _, eager_counts, eager_peak = peak_run(lambda: eager(*args))
+        if replay_counts != eager_counts or any(
+                replay_counts[k] < 1 for k in needed):
+            raise AssertionError(f"{tag}: launches per replay "
+                                 f"{replay_counts}, eager per call "
+                                 f"{eager_counts}")
+        runs[f"compiled {tag}"] = (replay_counts, needed)
+        entry = next(e for e in g.entries.values()
+                     if e.inputs[0].shape == args[0].shape)
+        nodes = graph_node_kinds(entry.graph)
+        eager_kinds = traced_kinds(lambda: eager(*args))
+        replay_kinds = traced_kinds(lambda: fn(*args))
+        if (nodes["kernel"] != eager_kinds["kernel"]
+                or replay_kinds["port"] != sum(replay_counts.values())):
+            raise AssertionError(f"{tag}: graph nodes {nodes}, eager call "
+                                 f"{eager_kinds}, replay {replay_kinds}, "
+                                 f"counted {replay_counts}")
+        ms, eager_ms = paired_cuda_ms(lambda: fn(*args), lambda: eager(*args))
+        host, eager_host = paired_host_ms(lambda: fn(*args),
+                                          lambda: eager(*args))
+        busy, eager_busy = (timeline(f)["busy_ms"] for f in (
+            lambda: fn(*args), lambda: eager(*args)))
+        print(f"[8 compiled] {tag} n={N} L={L} B={B}: torch.equal to the "
+              f"eager module on two inputs, {check.__doc__}, first "
+              f"output unchanged by the second call, B={SMALL_B} recaptured "
+              f"and equal; launches per replay {sum(replay_counts.values())}"
+              f" = eager's per call; graph nodes {nodes} (eager call's "
+              f"kernels {eager_kinds['kernel']}, the port's "
+              f"{replay_kinds['port']} per replay); {ms:.3f} vs eager "
+              f"{eager_ms:.3f} ms CUDA events, host clock {host:.3f} vs "
+              f"{eager_host:.3f} ms (medians of {TIME_ITERS} alternated "
+              f"pairs), device busy {busy:.3f} vs {eager_busy:.3f} ms, idle "
+              f"share {1 - busy / ms:.1%} vs {1 - eager_busy / eager_ms:.1%}"
+              f", peak above the inputs {peak / 2 ** 20:.1f} vs "
+              f"{eager_peak / 2 ** 20:.1f} MiB, first call {capture_ms:.1f} "
+              f"ms (two warm-up calls and the capture) leaving "
+              f"{resident / 2 ** 20:.1f} MiB resident with its output; "
+              f"{smi}")
+
+    # KE's 2-CTA cluster launch (n = 16384) inside a captured graph.
+    deep = default_parms(16384, 13)
+    gold = load_golden("sym", 16384, 13)
+    G = gold["v"].shape[0]
+    dargs = state_to_device(gold["v"], gold["sk"], *golden_seeds(G), dev)
+    fn = make_fused_encryptor(deep, device=dev)
+    check_golden_rows(fn(*dargs), gold, "compiled sym n=16384")
+    out, counts, _ = counted_run(lambda: fn(*dargs))
+    require_outputs_equal("compiled sym n=16384", out,
+                          SymEncryptor(deep, dev)(*dargs))
+    runs["compiled sym n=16384"] = (counts, SYM_PATH)
+    print(f"[8 compiled] sym n=16384 L=13 ({G} golden rows, KE as 2-CTA "
+          f"clusters inside the graph): golden_sym_16384_13.npz rows "
+          f"bit-exact, torch.equal to SymEncryptor")
+
+    # The API's encrypt, decrypt-decode and range check (phase 5b's calls)
+    # went through captured graphs.
+    parms = default_parms(N, L)
+    for name, g in (("encrypt", make_fused_encryptor(parms, device=dev)),
+                    ("decrypt", make_decryptor(parms, device=dev)),
+                    ("decode", make_decoder(parms, dev)),
+                    ("range check", api._canon_graph(parms, dev))):
+        if not g.entries:
+            raise AssertionError(f"api {name}: no captured graph")
+    print(f"[8 compiled] api: se_encrypt_seeded, se_decrypt_decode and the "
+          f"send path's range check replayed captured graphs; phase 8 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def paired_host_ms(fn, other, pairs=TIME_ITERS):
+    """Median host-clock ms to a finished card of fn() and other(), in
+    alternated pairs, each call started on an idle card."""
+    fns = (fn, other)
+    times = ([], [])
+    for i in range(pairs):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fns[j]()
+            torch.cuda.synchronize()
+            times[j].append((time.perf_counter() - start) * 1e3)
+    return tuple(statistics.median(t) for t in times)
+
+
 def main():
     smi, sm_hz = phase_device()
     dev = torch.device("cuda", 0)
@@ -1277,11 +1633,7 @@ def main():
     kc_rows, calib_counts = phase_calibrate(dev, smi, sm_hz, rows)
     rows += kc_rows
     phase_golden(dev)
-    # The kernels each path must launch: sym's c0 comes from KN's from-pte
-    # entry, sym_encrypt_batch's from KN unfused and a torch combine.
-    sym_path = ("keccak", "keccak_cbd", "ntt", "ntt_pte", "encode")
-    table_path = ("keccak", "keccak_cbd", "ntt", "encode")
-    asym_path = ("keccak", "keccak_cbd", "ntt_asym", "encode")
+    sym_path, table_path, asym_path = SYM_PATH, TABLE_PATH, ASYM_PATH
     runs = {"sym headline": (phase_headline_sym(dev, smi), sym_path),
             "asym headline": (phase_headline_asym(dev, smi),
                               asym_path + ("ntt",))}
@@ -1295,6 +1647,7 @@ def main():
         runs[tag] = (counts, {"sym_encrypt_sharded": table_path,
                               "sweep": sym_path + ("ntt_asym",)}.get(
             tag, asym_path if "asym" in tag else sym_path))
+    runs.update(phase_compiled(dev, smi))
     runs["calibration"] = (calib_counts, ("calib",))
     for path, (counts, needed) in runs.items():
         missing = [k for k in needed if counts[k] < 1]

@@ -9,9 +9,11 @@ component as it is produced.
 
 A context lives on one ``device``, an explicit argument of ``se_setup*``
 that defaults to ``cuda`` (which raises where there is no card; the tests
-pass ``"cpu"``).  Setting up builds the encryptor once and keeps it:
-``SymEncryptor`` for symmetric contexts, ``AsymEncryptor`` (the pk and its
-Shoup quotients resident) for asymmetric ones, on every device.
+pass ``"cpu"``).  Setting up takes the compiled factories the JAX API
+calls, ``make_fused_encryptor`` for symmetric contexts and
+``make_fused_asym_encryptor`` (the context's pk passed per call) for
+asymmetric ones: on the card each call replays a CUDA graph captured at
+the first call of its shape (``graphs.py``).
 
 Where the JAX package's API differs, on purpose:
 
@@ -34,14 +36,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .ckks.asym import AsymEncryptor, gen_pk_batch
-from .ckks.fast import SymEncryptor
-from .ckks.sym import decrypt_batch
+from .ckks.asym import gen_pk_batch, make_fused_asym_encryptor
+from .ckks.fast import make_fused_encryptor
+from .ckks.sym import make_decryptor
 from .config import Parms, default_parms
-from .convert import CUDA, unpack_ternary
+from .convert import CUDA, pk_to_device, unpack_ternary
+from .graphs import graphed
 from .io import serialize
 from .ops import keccak as kc
-from .ops.encode import check_encode_mode, decode
+from .ops.encode import check_encode_mode, make_decoder
 
 SYM = "sym"
 ASYM = "asym"
@@ -49,13 +52,13 @@ ASYM = "asym"
 
 @dataclasses.dataclass
 class SEContext:
-    """Equivalent of SE_PARMS: parameters, key material and the encryptor
-    built for them on `device`.
+    """Equivalent of SE_PARMS: parameters, key material and the compiled
+    encryptor for them on `device`.
 
     sk_signed ({-1,0,1} int32 (n,)) and pk0/pk1 (u32 (L, n), NTT form) are
-    the context's own host copies; _sk is the secret key on the device.
-    encode_mode: 'auto' (= 'f64') or one of 'sf', 'f64', 'dd', all the
-    same bit-exact encode.
+    the context's own host copies; _sk is the secret key and _pk the
+    public key (int64) on the device.  encode_mode: 'auto' (= 'f64') or
+    one of 'sf', 'f64', 'dd', all the same bit-exact encode.
     """
     parms: Parms
     encrypt_type: str
@@ -65,8 +68,9 @@ class SEContext:
     pk1: Optional[np.ndarray] = None
     encode_mode: str = "auto"
     _sk: Optional[torch.Tensor] = None
-    _sym_fn: Optional[SymEncryptor] = None
-    _asym_fn: Optional[AsymEncryptor] = None
+    _pk: Optional[tuple] = None
+    _sym_fn: Optional[Callable] = None
+    _asym_fn: Optional[Callable] = None
 
     @property
     def degree(self) -> int:
@@ -104,8 +108,8 @@ def sample_sk_from_seed(parms: Parms, seed: bytes) -> np.ndarray:
 def _make_context(parms: Parms, encrypt_type: str, device,
                   sk_signed=None, pk0=None, pk1=None,
                   encode_mode: str = "auto") -> SEContext:
-    """A context holding its own copies of the key material, with the key
-    and the encryptor uploaded to `device`."""
+    """A context holding its own copies of the key material, with the keys
+    uploaded to `device` and its compiled encryptor."""
     if encrypt_type not in (SYM, ASYM):
         raise ValueError(f"unknown encrypt type {encrypt_type!r}")
     if encode_mode != "auto":
@@ -122,11 +126,12 @@ def _make_context(parms: Parms, encrypt_type: str, device,
             raise ValueError("an asymmetric context needs pk0 and pk1")
         ctx.pk0 = np.array(pk0, dtype=np.uint32)
         ctx.pk1 = np.array(pk1, dtype=np.uint32)
-        ctx._asym_fn = AsymEncryptor(
-            parms, *(torch.as_tensor(p.astype(np.int64), device=device)
-                     for p in (ctx.pk0, ctx.pk1)), device)
+        ctx._pk = pk_to_device(ctx.pk0, ctx.pk1, device)
+        ctx._asym_fn = make_fused_asym_encryptor(
+            parms, ctx.resolved_encode_mode(), device)
     else:
-        ctx._sym_fn = SymEncryptor(parms, device)
+        ctx._sym_fn = make_fused_encryptor(parms, ctx.resolved_encode_mode(),
+                                           device)
     return ctx
 
 
@@ -231,7 +236,7 @@ def se_encrypt_seeded(ctx: SEContext, values: np.ndarray,
     else:
         if ctx._asym_fn is None:
             raise ValueError("asymmetric encryption needs the public key")
-        out = ctx._asym_fn(v, _seed_words_batch(seeds, dev))
+        out = ctx._asym_fn(v, *ctx._pk, _seed_words_batch(seeds, dev))
 
     if send is not None:
         # Sanity check before anything leaves the device: every ciphertext
@@ -255,19 +260,23 @@ def se_encrypt_seeded(ctx: SEContext, values: np.ndarray,
     return out
 
 
-@lru_cache(maxsize=16)
 def _canon_check(parms: Parms):
     """Canonicality reduction on the data's device: all coefficients of
     both components < their limb's prime (seal_embedded.c:172-177).
-    Returns check(c0, c1) -> 0-dim bool tensor."""
-    moduli = tuple(int(q) for q in parms.moduli)
+    Returns check(c0, c1) -> 0-dim bool tensor, compiled per input
+    signature on c0's device."""
+    return lambda c0, c1: _canon_graph(parms, c0.device)(c0, c1)
+
+
+@lru_cache(maxsize=16)
+def _canon_graph(parms: Parms, device: torch.device):
+    q = torch.tensor(parms.moduli, dtype=torch.int64,
+                     device=device)[:, None, None]
 
     def check(c0, c1):
-        q = torch.tensor(moduli, dtype=torch.int64,
-                         device=c0.device)[:, None, None]
         return (c0 < q).all() & (c1 < q).all()
 
-    return check
+    return graphed(check, device)
 
 
 def se_encrypt(ctx: SEContext, values: np.ndarray,
@@ -282,8 +291,10 @@ def se_decrypt_decode(ctx: SEContext, out, prime_idx: int = 0) -> np.ndarray:
     (B, n/2) slot values of prime `prime_idx`'s component."""
     if ctx._sk is None:
         raise ValueError("decryption needs the secret key")
-    centered = decrypt_batch(out["c0"], out["c1"], ctx._sk, ctx.parms)
-    return decode(centered[prime_idx], ctx.parms).cpu().numpy()
+    centered = make_decryptor(ctx.parms, device=ctx.device)(
+        out["c0"], out["c1"], ctx._sk)
+    return make_decoder(ctx.parms, ctx.device)(
+        centered[prime_idx]).cpu().numpy()
 
 
 def se_cleanup(ctx: SEContext) -> None:
@@ -291,13 +302,15 @@ def se_cleanup(ctx: SEContext) -> None:
     discipline, seal_embedded.c:217-233, defines.h:405-409).
 
     The context's own host copies of sk/pk are zeroed in place, and its
-    device copies (the secret key and the encryptor's pk and Shoup
-    quotients) with zero_(), before the references are dropped.  Arrays
-    the caller passed to se_setup_custom are never touched: the context
-    copied them.  Memory that PyTorch's allocators free is not scrubbed;
-    transient device tensors of an encrypt call (for example ntt(s)) are
-    freed when the call's tensors die, so keep contexts short-lived and
-    call se_cleanup as soon as the last batch is done."""
+    device copies (the secret key and the public key) with zero_(), before
+    the references are dropped; so are the copies the compiled functions
+    it used keep of them: the static inputs of its encryptor's and its
+    decryptor's graphs, and the asym encryptor's pk and Shoup quotients.
+    Arrays the caller passed to se_setup_custom are never touched: the
+    context copied them.  Memory that PyTorch's allocators free is not
+    scrubbed, nor are the intermediates in a graph's private pool (for
+    example ntt(s)), so keep contexts short-lived and call se_cleanup as
+    soon as the last batch is done."""
     for name in ("sk_signed", "pk0", "pk1"):
         buf = getattr(ctx, name)
         if buf is not None:
@@ -305,10 +318,14 @@ def se_cleanup(ctx: SEContext) -> None:
         setattr(ctx, name, None)
     if ctx._sk is not None:
         ctx._sk.zero_()
-    if ctx._asym_fn is not None:
-        for name in ("pk0", "pk1", "pk0_quot", "pk1_quot"):
-            getattr(ctx._asym_fn, name).zero_()
+        make_decryptor(ctx.parms, device=ctx.device).scrub()
+    for t in ctx._pk or ():
+        t.zero_()
+    for fn in (ctx._sym_fn, ctx._asym_fn):
+        if fn is not None:
+            fn.scrub()
     ctx._sk = None
+    ctx._pk = None
     ctx._sym_fn = None
     ctx._asym_fn = None
 

@@ -26,6 +26,7 @@ import torch
 
 from ..config import Parms
 from ..convert import CUDA
+from ..graphs import graphed
 from ..ops import modarith as ma
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
@@ -35,27 +36,40 @@ from .fast import EncryptorBase
 
 
 class AsymEncryptor(EncryptorBase):
-    """asym_encrypt_fused for one parameter set and one public key, with
-    its tables (see EncryptorBase) and pk0, pk1 and their Shoup quotients
-    (pk0_quot, pk1_quot) resident on `device` as buffers.
+    """asym_encrypt_fused for one parameter set, with its tables (see
+    EncryptorBase) and a public key, pk0, pk1 and their Shoup quotients
+    (pk0_quot, pk1_quot), resident on `device` as buffers.
 
-    pk0, pk1: int64 (L, n) u32 values in [0, q), NTT form; the encryptor
-    keeps copies, so a later in-place change of the caller's tensors
-    leaves pk and its quotients consistent.
+    pk0, pk1: int64 or uint32 (L, n) u32 values in [0, q), NTT form,
+    tensors or arrays; the encryptor keeps copies, so a later in-place
+    change of the caller's tensors leaves pk and its quotients consistent.
+    Without them the key is zero until set_key gives one.
     forward(values f32 (B, <= n/2), seed_words int64 (B, 16) u32 private
     PRNG seeds) returns a dict with c0, c1 int64 (L, B, n) u32 values, pt
     and pte int64 (B, n) and ok bool (B,), the layouts of the JAX function.
     """
 
-    def __init__(self, parms: Parms, pk0, pk1, device=CUDA):
+    def __init__(self, parms: Parms, pk0=None, pk1=None, device=CUDA):
         super().__init__(parms, device)
+        shape = (len(self.moduli), parms.degree)
+        for name in ("pk0", "pk0_quot", "pk1", "pk1_quot"):
+            self.register_buffer(name, torch.zeros(shape, dtype=torch.int64,
+                                                   device=device))
+        if pk0 is not None:
+            self.set_key(pk0, pk1)
+
+    def set_key(self, pk0, pk1) -> None:
+        """Copy the public key into the pk0, pk1 buffers and recompute
+        their quotients in place.  With pk0, pk1 int64 tensors on the
+        encryptor's device, it only copies and computes on the device, so
+        it can run inside a CUDA graph with pk among the static inputs."""
         qv = self.q[:, None]
         for name, pk in (("pk0", pk0), ("pk1", pk1)):
-            pk = torch.as_tensor(pk, device=device).to(
-                torch.int64, copy=True).contiguous()
-            self.register_buffer(name, pk)
-            self.register_buffer(f"{name}_quot",
-                                 ma.shoup_quotient(pk, qv).contiguous())
+            buf = getattr(self, name)
+            if not isinstance(pk, torch.Tensor):
+                pk = torch.as_tensor(np.asarray(pk).astype(np.int64))
+            buf.copy_(pk)
+            getattr(self, f"{name}_quot").copy_(ma.shoup_quotient(buf, qv))
 
     def forward(self, values, seed_words):
         pt, pte, u, e1, ok = self.prologue(values, seed_words)
@@ -129,49 +143,54 @@ def asym_encrypt_batch(values, pk0, pk1, seed_words, parms: Parms,
                               encode_mode)
 
 
-class PerKeyEncryptor:
-    """fn(values, pk0, pk1, seed_words) -> dict on one (parms, device):
-    the AsymEncryptor of the last public key given is kept and rebuilt
-    only when another key arrives.  The key is compared by value with the
-    encryptor's own copies, so a caller's key tensor changed in place
-    counts as another key."""
+class _KeyedEncryptor:
+    """fn(values, pk0, pk1, seed_words) -> dict on one (parms, device), the
+    key given per call as the JAX factory's jitted function takes it: one
+    AsymEncryptor, and the call's set_key + forward compiled per input
+    signature (`graphed`), pk among the graph's inputs.  A key that is not
+    an int64 tensor on `device` is moved there first."""
 
     def __init__(self, parms: Parms, device: torch.device):
-        self.parms = parms
         self.device = device
-        self._enc = None
+        self.encryptor = AsymEncryptor(parms, device=device)
+        self.graphed = graphed(self._encrypt, device)
 
-    def encryptor(self, pk0, pk1) -> AsymEncryptor:
-        """The AsymEncryptor of pk0, pk1 (int64 or uint32 (L, n))."""
-        pk = tuple(p.to(self.device, torch.int64)
-                   if isinstance(p, torch.Tensor) else torch.as_tensor(
-                       np.asarray(p).astype(np.int64), device=self.device)
-                   for p in (pk0, pk1))
-        enc = self._enc  # read once: another thread may replace it
-        if enc is None or not (torch.equal(pk[0], enc.pk0)
-                               and torch.equal(pk[1], enc.pk1)):
-            enc = AsymEncryptor(self.parms, *pk, self.device)
-            self._enc = enc
-        return enc
+    def _encrypt(self, values, pk0, pk1, seed_words):
+        self.encryptor.set_key(pk0, pk1)
+        return self.encryptor(values, seed_words)
+
+    def _key(self, pk):
+        if isinstance(pk, torch.Tensor):
+            return pk.to(self.device, torch.int64)
+        return torch.as_tensor(np.asarray(pk).astype(np.int64),
+                               device=self.device)
 
     def __call__(self, values, pk0, pk1, seed_words):
-        return self.encryptor(pk0, pk1)(values, seed_words)
+        return self.graphed(values, self._key(pk0), self._key(pk1),
+                            seed_words)
+
+    def scrub(self) -> None:
+        """Zero the key's copies: the graphs' static inputs and the
+        encryptor's pk and quotients (the next call sets its own key)."""
+        self.graphed.scrub()
+        for name in ("pk0", "pk1", "pk0_quot", "pk1_quot"):
+            getattr(self.encryptor, name).zero_()
 
 
 @lru_cache(maxsize=16)
-def _per_key_encryptor(parms: Parms, device: torch.device):
-    return PerKeyEncryptor(parms, device)
+def _keyed_encryptor(parms: Parms, device: torch.device) -> _KeyedEncryptor:
+    return _KeyedEncryptor(parms, device)
 
 
 def make_asym_encryptor(parms: Parms, encode_mode: str = "f64",
                         device=CUDA):
-    """asym_encrypt_batch bound to its parameters, as the JAX factory's
-    jitted function: fn(values, pk0, pk1, seed_words) -> dict, pk given
-    per call (int64 or uint32 (L, n)).  One function per (parms, device)
-    serves every call; it keeps the AsymEncryptor of the last pk.  Inputs
-    on `device` (the card unless told otherwise)."""
+    """asym_encrypt_batch bound to its parameters and compiled per input
+    signature on `device` (the card unless told otherwise), as the JAX
+    factory's jitted function: fn(values, pk0, pk1, seed_words) -> dict,
+    pk given per call (int64 or uint32 (L, n)).  One function per (parms,
+    device) serves every call and every key."""
     check_encode_mode(encode_mode)
-    return _per_key_encryptor(parms, torch.device(device))
+    return _keyed_encryptor(parms, torch.device(device))
 
 
 def make_fused_asym_encryptor(parms: Parms, encode_mode: str = "dd",

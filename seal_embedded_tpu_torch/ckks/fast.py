@@ -25,6 +25,7 @@ from torch import nn
 
 from ..config import Parms
 from ..convert import CUDA
+from ..graphs import graphed
 from ..ops import modarith as ma
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode, scale_over_n, table_tensors
@@ -142,15 +143,15 @@ def sym_encrypt_fused(values, sk_signed, share_words, err_words,
 
 
 @lru_cache(maxsize=16)
-def _sym_encryptor(parms: Parms, device: torch.device) -> SymEncryptor:
-    return SymEncryptor(parms, device)
+def _graphed_sym(parms: Parms, device: torch.device):
+    return graphed(SymEncryptor(parms, device), device)
 
 
 def make_fused_encryptor(parms: Parms, encode_mode: str = "dd",
                          device=CUDA):
-    """sym_encrypt_fused bound to its parameters, as the JAX factory's
-    jitted function: (values, sk_signed, share_words, err_words) -> dict.
-    One SymEncryptor per (parms, device) serves every call; inputs on
-    `device` (the card unless told otherwise)."""
+    """sym_encrypt_fused bound to its parameters and compiled per input
+    signature on `device` (the card unless told otherwise), as the JAX
+    factory's jitted function: (values, sk_signed, share_words, err_words)
+    -> dict.  One SymEncryptor per (parms, device) serves every call."""
     check_encode_mode(encode_mode)
-    return _sym_encryptor(parms, torch.device(device))
+    return _graphed_sym(parms, torch.device(device))

@@ -19,8 +19,13 @@ fused c0 run for all limbs in one KN launch each, as in ``SymEncryptor``.
 
 from __future__ import annotations
 
+from functools import lru_cache, partial
+
+import torch
+
 from ..config import Parms
 from ..convert import CUDA
+from ..graphs import graphed
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
 from .fast import SymEncryptor
@@ -122,29 +127,56 @@ def add_cbd_error(pt, err_words, n: int):
     return pt + e
 
 
+@lru_cache(maxsize=16)
+def _limbscan(parms: Parms, layout: str, order: str,
+              device: torch.device) -> LimbscanEncryptor:
+    return LimbscanEncryptor(parms, layout, order, device)
+
+
+@lru_cache(maxsize=16)
+def _graphed_limbscan(parms: Parms, layout: str, order: str,
+                      device: torch.device):
+    return graphed(_limbscan(parms, layout, order, device), device)
+
+
 def make_limbscan_encryptor(parms: Parms, layout: str = "reference",
                             encode_mode: str = "f64",
                             order: str = "forward", device=CUDA):
-    """A LimbscanEncryptor on `device`, called as the JAX factory's jitted
-    function: (values, sk_signed, share_words, err_words) -> dict."""
+    """sym_encrypt_limbscan bound to its parameters and compiled per input
+    signature on `device` (the card unless told otherwise), as the JAX
+    factory's jitted function: (values, sk_signed, share_words, err_words)
+    -> dict.  One LimbscanEncryptor per (parms, layout, order, device)."""
+    _check(layout, order)
     check_encode_mode(encode_mode)
-    return LimbscanEncryptor(parms, layout, order, device)
+    return _graphed_limbscan(parms, layout, order, torch.device(device))
+
+
+@lru_cache(maxsize=16)
+def _graphed_expander(parms: Parms, layout: str, order: str,
+                      device: torch.device):
+    return graphed(partial(expand_c1, parms=parms, layout=layout,
+                           order=order), device)
 
 
 def make_c1_expander(parms: Parms, layout: str = "reference",
                      order: str = "forward", device=CUDA):
-    """expand_c1 bound to its parameters; share_words are moved to
-    `device` (the card unless told otherwise)."""
+    """expand_c1 bound to its parameters and compiled per input signature
+    on `device` (the card unless told otherwise): fn(share_words on
+    `device`) -> (c1, ok)."""
     _check(layout, order)
+    return _graphed_expander(parms, layout, order, torch.device(device))
 
-    def expander(share_words):
-        share_words = share_words.to(device)
-        return expand_c1(share_words, parms, layout, order)
-    return expander
+
+@lru_cache(maxsize=16)
+def _graphed_from_pte(parms: Parms, layout: str, device: torch.device):
+    return graphed(_limbscan(parms, layout, "forward", device).encrypt_pte,
+                   device)
 
 
 def make_from_pte_encryptor(parms: Parms, layout: str = "reference",
                             device=CUDA):
-    """sym_encrypt_from_pte bound to one LimbscanEncryptor on `device`:
-    encrypt_pte(pte, sk_signed, share_words, ok=None) -> dict."""
-    return LimbscanEncryptor(parms, layout, "forward", device).encrypt_pte
+    """sym_encrypt_from_pte bound to its parameters and compiled per input
+    signature on `device` (the card unless told otherwise):
+    fn(pte, sk_signed, share_words, ok=None) -> dict."""
+    _check(layout, "forward")
+    return _graphed_from_pte(parms, layout, torch.device(device))

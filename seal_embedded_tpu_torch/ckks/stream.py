@@ -214,10 +214,12 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
     """API-level streaming encrypt: send c0/c1 bytes per prime as produced
     (the reference's send-per-prime loop, seal_embedded.c:180-204).
 
-    Symmetric contexts stream through the context's encryptor
-    (share_seeds = the shareable stream, err_seeds = the private stream);
-    asymmetric ones through its AsymEncryptor (err_seeds = the private
-    stream sampling u/e0/e1; share_seeds unused).  The seeds are required:
+    Symmetric contexts stream through a LimbscanEncryptor of the context's
+    parameters in the walk order (share_seeds = the shareable stream,
+    err_seeds = the private stream); asymmetric ones through an
+    AsymEncryptor of the context's pk (err_seeds = the private stream
+    sampling u/e0/e1; share_seeds unused).  Streams run eagerly: the
+    context's compiled batch encryptor is not used.  The seeds are required:
     a missing list raises ValueError (the JAX function dies with a
     TypeError in its seed conversion).  Returns the list of limb dicts.
     """
@@ -236,14 +238,14 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
         np.atleast_2d(np.asarray(values, dtype=np.float32)), device=dev)
     err_w = _seed_words_batch(err_seeds, dev)
     if ctx.encrypt_type == ASYM:
-        if ctx._asym_fn is None:
+        if ctx._pk is None:
             raise ValueError("asym streaming needs a loaded pk")
-        gen = asym_stream_with(ctx._asym_fn, vals, err_w, order)
+        gen = asym_stream_with(AsymEncryptor(ctx.parms, *ctx._pk, dev), vals,
+                               err_w, order)
     else:
         if ctx._sk is None:
             raise ValueError("sym streaming needs the secret key")
-        enc = (ctx._sym_fn if order == "forward"
-               else LimbscanEncryptor(ctx.parms, "reference", order, dev))
+        enc = LimbscanEncryptor(ctx.parms, "reference", order, dev)
         gen = sym_stream_with(enc, vals, ctx._sk,
                               _seed_words_batch(share_seeds, dev), err_w,
                               order)

@@ -9,27 +9,31 @@ Port of ``seal_embedded_tpu/ckks/sym.py``:
 
 The combine is the JAX package's Barrett mul_mod / neg_mod / add_mod in
 torch, where ``SymEncryptor`` fuses it into KN in Shoup form; both give
-the same canonical values.  ``decrypt_batch`` is the test oracle: per
-prime, ntt(s) through KN, then c0 + c1 * ntt(s) and the inverse NTT
-(plain torch, as the JAX package's jnp INTT).
+the same canonical values.  ``Decryptor`` (``decrypt_batch``,
+``make_decryptor``) is the test oracle: ntt(s) of every prime in one KN
+launch, then per prime c0 + c1 * ntt(s) and the inverse NTT (plain
+torch, as the JAX package's jnp INTT).
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import Parms
 from ..convert import CUDA
+from ..graphs import graphed
 from ..io.serialize import intt_fast_root_table
 from ..ops import modarith as ma
 from ..ops import sampling as sp
 from ..ops.encode import encode_any
 from ..ops.kernels.ntt import ntt_fwd
-from ..ops.ntt import intt, intt_lazy_with_tables, ntt_otf, ntt_tables_stacked
-from .limbwise import LimbscanEncryptor
+from ..ops.ntt import (intt_lazy_with_tables, intt_tables, intt_with_tables,
+                       ntt_otf, ntt_tables_stacked)
+from .limbwise import make_limbscan_encryptor
 
 NTT_VARIANTS = ("table", "otf")
 INTT_IMPLS = ("canonical", "lazy")
@@ -97,44 +101,110 @@ def sym_encrypt_batch(values, sk_signed, share_seed_words, err_seed_words,
 def make_sym_encryptor(parms: Parms, layout: str = "reference",
                        device=CUDA):
     """The symmetric encryptor the JAX package caches: the limb-scan
-    pipeline, bit-identical to sym_encrypt_batch in the reference layout."""
-    return LimbscanEncryptor(parms, layout, device=device)
+    pipeline, bit-identical to sym_encrypt_batch in the reference layout,
+    compiled per input signature (make_limbscan_encryptor)."""
+    return make_limbscan_encryptor(parms, layout, device=device)
+
+
+class Decryptor(nn.Module):
+    """Test oracle for one parameter set: per-prime decrypt to centered
+    pte, with its tables resident on `device` as buffers: ntt(s)'s root
+    tables (ntt_op, ntt_quot), the moduli q and the inverse tables
+    (intt_op, intt_quot, (L, n)) of `intt_impl`.
+
+    intt_impl: "canonical" (ops.ntt.intt's tables) or "lazy", the
+    reference's fast INTT with MUMO tables (intt_lazy_inpl,
+    intt.c:72-129), read from `loaded_intt` ({q: (op, quot)} arrays) where
+    it has q and computed in the same file order where not.
+    Value-identical.
+
+    forward(c0, c1 int64 (L, B, n) u32 values, sk_signed (n,) in {-1, 0,
+    1}) returns int64 (L, B, n): ntt(s) of every limb in one KN launch,
+    then per limb c0 + c1 * ntt(s), the inverse NTT and centering.
+    """
+
+    def __init__(self, parms: Parms, intt_impl: str = "canonical",
+                 loaded_intt=None, device=CUDA):
+        super().__init__()
+        if intt_impl not in INTT_IMPLS:
+            raise ValueError(f"unknown intt impl {intt_impl!r}")
+        n = parms.degree
+        self.moduli = tuple(int(q) for q in parms.moduli)
+        self.lazy = intt_impl == "lazy"
+        inverse = []
+        for q in self.moduli:
+            if not self.lazy:
+                inverse.append(intt_tables(n, q))
+            elif loaded_intt is not None and q in loaded_intt:
+                inverse.append(loaded_intt[q])
+            else:
+                pairs = intt_fast_root_table(n, parms.logn, q,
+                                             parms.ntt_root(q))
+                inverse.append((pairs[0::2], pairs[1::2]))
+        tables = {"ntt": ntt_tables_stacked(n, self.moduli),
+                  "intt": tuple(np.stack([np.asarray(t[j], np.uint32)
+                                          for t in inverse])
+                                for j in (0, 1))}
+        for kind, (op, quot) in tables.items():
+            for name, t in ((f"{kind}_op", op), (f"{kind}_quot", quot)):
+                self.register_buffer(name, torch.as_tensor(
+                    t.astype(np.int64), device=device))
+        self.register_buffer("q", torch.tensor(self.moduli,
+                                               dtype=torch.int64,
+                                               device=device))
+
+    def forward(self, c0, c1, sk_signed):
+        sk = sk_signed.to(torch.int64).reshape(1, 1, -1)
+        s = torch.where(sk < 0, self.q[:, None, None] - 1, sk)   # (L, 1, n)
+        ntt_s = ntt_fwd(s.contiguous(), self.ntt_op, self.ntt_quot,
+                        self.q)[:, 0]
+        inverse = intt_lazy_with_tables if self.lazy else intt_with_tables
+        outs = []
+        for i, q in enumerate(self.moduli):
+            pte_ntt = ma.add_mod(c0[i], ma.mul_mod(c1[i], ntt_s[i][None, :],
+                                                   q), q)
+            pte = inverse(pte_ntt, self.intt_op[i], self.intt_quot[i], q)
+            outs.append(torch.where(pte > q // 2, pte - q, pte))
+        return torch.stack(outs)
+
+
+def _intt_key(loaded_intt):
+    """loaded_intt ({q: (op, quot)}) as a hashable key: its bytes."""
+    if loaded_intt is None:
+        return None
+    return tuple(sorted((int(q), *(np.asarray(t, np.uint32).tobytes()
+                                   for t in tables))
+                        for q, tables in loaded_intt.items()))
+
+
+@lru_cache(maxsize=16)
+def _decryptor(parms: Parms, intt_impl: str, intt_key,
+               device: torch.device) -> Decryptor:
+    loaded = None if intt_key is None else {
+        q: tuple(np.frombuffer(b, np.uint32) for b in tables)
+        for q, *tables in intt_key}
+    return Decryptor(parms, intt_impl, loaded, device)
 
 
 def decrypt_batch(c0, c1, sk_signed, parms: Parms,
                   intt_impl: str = "canonical", loaded_intt=None):
-    """Test oracle: per-prime decrypt to centered pte, int64 (L, B, n).
-
-    c0, c1: int64 (L, B, n) u32 values.  intt_impl: "canonical"
-    (ops.ntt.intt) or "lazy", the reference's fast INTT with MUMO tables
-    (intt_lazy_inpl, intt.c:72-129), reading `loaded_intt` ({q: (op,
-    quot)} arrays) where it has q and computing the tables in the same
-    file order where not.  Value-identical.
-    """
-    if intt_impl not in INTT_IMPLS:
-        raise ValueError(f"unknown intt impl {intt_impl!r}")
-    outs = []
-    for i, q in enumerate(parms.moduli):
-        q = int(q)
-        ntt_s = _ntt_s_for_prime(sk_signed, q)
-        pte_ntt = ma.add_mod(c0[i], ma.mul_mod(c1[i], ntt_s[None, :], q), q)
-        if intt_impl == "lazy":
-            if loaded_intt is not None and q in loaded_intt:
-                op, quot = loaded_intt[q]
-            else:
-                pairs = intt_fast_root_table(parms.degree, parms.logn, q,
-                                             parms.ntt_root(q))
-                op, quot = pairs[0::2], pairs[1::2]
-            op, quot = (torch.as_tensor(np.asarray(t, np.uint32)
-                                        .astype(np.int64), device=c0.device)
-                        for t in (op, quot))
-            pte = intt_lazy_with_tables(pte_ntt, op, quot, q)
-        else:
-            pte = intt(pte_ntt, q)
-        outs.append(torch.where(pte > q // 2, pte - q, pte))
-    return torch.stack(outs)
+    """Test oracle: per-prime decrypt to centered pte, int64 (L, B, n),
+    through the cached Decryptor of (parms, intt_impl, loaded_intt) on
+    c0's device.  c0, c1: int64 (L, B, n) u32 values; see Decryptor."""
+    return _decryptor(parms, intt_impl, _intt_key(loaded_intt),
+                      c0.device)(c0, c1, sk_signed)
 
 
-def make_decryptor(parms: Parms):
-    """decrypt_batch bound to its parameters."""
-    return partial(decrypt_batch, parms=parms)
+@lru_cache(maxsize=16)
+def _graphed_decryptor(parms: Parms, intt_impl: str, intt_key,
+                       device: torch.device):
+    return graphed(_decryptor(parms, intt_impl, intt_key, device), device)
+
+
+def make_decryptor(parms: Parms, intt_impl: str = "canonical",
+                   loaded_intt=None, device=CUDA):
+    """decrypt_batch bound to its parameters and compiled per input
+    signature on `device` (the card unless told otherwise), as the JAX
+    package's cached jit: fn(c0, c1, sk_signed) -> int64 (L, B, n)."""
+    return _graphed_decryptor(parms, intt_impl, _intt_key(loaded_intt),
+                              torch.device(device))

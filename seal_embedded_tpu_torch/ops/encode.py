@@ -19,12 +19,14 @@ this one path.
 from __future__ import annotations
 
 import math
-from functools import lru_cache, partial
+from functools import lru_cache
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import Parms, bitrev
+from ..convert import CUDA
 from ..golden.encode import calc_index_map
 
 ENCODE_MODES = ("sf", "f64", "dd")
@@ -205,36 +207,67 @@ def encode_any(values, parms: Parms, mode: str = "sf", root_tables=None,
                       scale_over_n(parms))
 
 
+class Decoder(nn.Module):
+    """Decode oracle for one parameter set (test side, like the
+    reference's check_decode_decrypt_inpl), with its tables resident on
+    `device` as buffers: the forward-FFT roots of every round,
+    concatenated (round r, of 2^r groups, at offset 2^r - 1), and the
+    index map's first half.
+
+    forward(pte_signed int64 (..., n)) returns the n/2 real slot values
+    (..., n/2), float64: the forward FFT in separate re/im f64 planes
+    (fft.c:146-213), then division by the scale and the index map.  The
+    JAX package has no kernel for it; here too it is plain torch."""
+
+    def __init__(self, parms: Parms, device=CUDA):
+        super().__init__()
+        n = parms.degree
+        self.degree = n
+        self.scale = float(parms.scale)
+        rounds = fft_root_tables(n)
+        for name, part in (("fft_re", 0), ("fft_im", 1)):
+            self.register_buffer(name, torch.as_tensor(
+                np.concatenate([r[part] for r in rounds]), device=device))
+        self.register_buffer("imap", torch.as_tensor(
+            index_map_np(n)[: n // 2].astype(np.int64), device=device))
+
+    def forward(self, pte_signed):
+        n = self.degree
+        batch = pte_signed.shape[:-1]
+        re = pte_signed.to(torch.float64)
+        im = torch.zeros_like(re)
+        h, tt = 1, n // 2
+        while tt >= 1:
+            sre = self.fft_re[h - 1:2 * h - 1].reshape(h, 1)
+            sim = self.fft_im[h - 1:2 * h - 1].reshape(h, 1)
+            re_v = re.reshape(batch + (h, 2, tt))
+            im_v = im.reshape(batch + (h, 2, tt))
+            ure, uim = re_v[..., 0, :], im_v[..., 0, :]
+            wre = re_v[..., 1, :] * sre - im_v[..., 1, :] * sim
+            wim = re_v[..., 1, :] * sim + im_v[..., 1, :] * sre
+            re = torch.stack([ure + wre, ure - wre],
+                             dim=-2).reshape(batch + (n,))
+            im = torch.stack([uim + wim, uim - wim],
+                             dim=-2).reshape(batch + (n,))
+            h, tt = h * 2, tt // 2
+        return (re / self.scale)[..., self.imap]
+
+
+@lru_cache(maxsize=16)
+def _decoder(parms: Parms, device: torch.device) -> Decoder:
+    return Decoder(parms, device)
+
+
 def decode(pte_signed, parms: Parms):
-    """Decode oracle (test side, like the reference's
-    check_decode_decrypt_inpl): signed int64 coefficients (..., n) -> the
-    n/2 real slot values (..., n/2), float64 on the same device.
-
-    The forward FFT in separate re/im f64 planes (fft.c:146-213), then
-    division by the scale and the index map's first half.  The JAX package
-    has no kernel for it; here too it is plain torch."""
-    n = parms.degree
-    batch = pte_signed.shape[:-1]
-    dev = pte_signed.device
-    re = pte_signed.to(torch.float64)
-    im = torch.zeros_like(re)
-    h, tt = 1, n // 2
-    for sre_np, sim_np in fft_root_tables(n):
-        sre = torch.as_tensor(sre_np, device=dev).reshape(h, 1)
-        sim = torch.as_tensor(sim_np, device=dev).reshape(h, 1)
-        re_v = re.reshape(batch + (h, 2, tt))
-        im_v = im.reshape(batch + (h, 2, tt))
-        ure, uim = re_v[..., 0, :], im_v[..., 0, :]
-        wre = re_v[..., 1, :] * sre - im_v[..., 1, :] * sim
-        wim = re_v[..., 1, :] * sim + im_v[..., 1, :] * sre
-        re = torch.stack([ure + wre, ure - wre], dim=-2).reshape(batch + (n,))
-        im = torch.stack([uim + wim, uim - wim], dim=-2).reshape(batch + (n,))
-        h, tt = h * 2, tt // 2
-    imap = torch.as_tensor(index_map_np(n)[: n // 2].astype(np.int64),
-                           device=dev)
-    return (re / float(parms.scale))[..., imap]
+    """Decode signed int64 coefficients (..., n) on their device: the
+    cached Decoder of (parms, device)."""
+    return _decoder(parms, pte_signed.device)(pte_signed)
 
 
-def make_decoder(parms: Parms):
-    """decode bound to its parameters (the JAX package's cached jit)."""
-    return partial(decode, parms=parms)
+@lru_cache(maxsize=16)
+def make_decoder(parms: Parms, device=CUDA):
+    """decode bound to its parameters, compiled per input signature on
+    `device` (the card unless told otherwise), as the JAX package's cached
+    jit: fn(pte_signed) -> float64 (..., n/2)."""
+    from ..graphs import graphed   # graphs imports the kernels, which import this
+    return graphed(_decoder(parms, torch.device(device)), device)

@@ -148,15 +148,20 @@ def ntt_asym_from_signed_plain(u, e1, pte, op, quot, q, r0, r1, p0_op,
                           p0_quot, p1_op, p1_quot)
 
 
+@lru_cache(maxsize=64)
+def ntt_tables_on(n: int, q: int, device: torch.device):
+    """ntt_tables(n, q) as int64 (1, n) tensors on `device`, with q as an
+    int64 (1,) tensor: uploaded once per (n, q, device), not per call."""
+    op, quot = ntt_tables(n, q)
+    return (torch.as_tensor(op.astype(np.int64), device=device)[None],
+            torch.as_tensor(quot.astype(np.int64), device=device)[None],
+            torch.tensor([q], dtype=torch.int64, device=device))
+
+
 def ntt(x, q: int):
     """Forward NTT over the last axis for one modulus: int64 (..., n)."""
     n = x.shape[-1]
-    op, quot = ntt_tables(n, int(q))
-    dev = x.device
-    out = ntt_limbs(x.reshape(1, -1, n),
-                    torch.as_tensor(op.astype(np.int64), device=dev)[None],
-                    torch.as_tensor(quot.astype(np.int64), device=dev)[None],
-                    torch.tensor([int(q)], dtype=torch.int64, device=dev))
+    out = ntt_limbs(x.reshape(1, -1, n), *ntt_tables_on(n, int(q), x.device))
     return out.reshape(x.shape)
 
 
@@ -190,10 +195,15 @@ def _u32(table, like):
 def intt(x, q: int):
     """Inverse of ntt(): canonical [0, q) coefficients (intt.c semantics,
     including the 1/n fold).  x: int64 (..., n) in [0, q)."""
+    op, quot = intt_tables(x.shape[-1], q)
+    return intt_with_tables(x, _u32(op, x), _u32(quot, x), q)
+
+
+def intt_with_tables(x, op, quot, q: int):
+    """intt() with its tables given: op, quot int64 (n,), intt_tables(n, q)
+    on x's device."""
     n = x.shape[-1]
     logn = n.bit_length() - 1
-    op_np, quot_np = intt_tables(n, q)
-    op, quot = _u32(op_np, x), _u32(quot_np, x)
     batch = x.shape[:-1]
     v = x
     h, tt = n // 2, 1

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ckks.asym import PerKeyEncryptor
+from ..ckks.asym import AsymEncryptor
 from ..ckks.limbwise import PARALLEL_COUNTER_STRIDE, LimbscanEncryptor
 from ..config import Parms
 from ..ops import sampling as sp
@@ -99,8 +99,7 @@ def make_asym_limb_sharded_encryptor(mesh, parms: Parms,
                                      limb_axis: str = "limb"):
     """Asymmetric batched encode + encrypt, the limb axis sharded: rank l
     of the limb group keeps only pk[l * L/n_limb : (l+1) * L/n_limb]
-    resident (an AsymEncryptor on its primes, rebuilt only for another
-    key).  The per-prime step has no cross-prime PRNG dependency at all
+    resident (an AsymEncryptor on its primes, its key set per call).  The per-prime step has no cross-prime PRNG dependency at all
     (ckks_asym.c:205-286), so no special counter layout is needed.
 
     Returns fn(values, pk0, pk1, seed_words) -> Shards with c0, c1 (this
@@ -110,11 +109,11 @@ def make_asym_limb_sharded_encryptor(mesh, parms: Parms,
     check_encode_mode(encode_mode)
     n = parms.degree
     limbs, d, group, front = _layout(mesh, parms, data_axis, limb_axis)
-    keyed = PerKeyEncryptor(Parms(n, parms.moduli[limbs], parms.scale),
-                            mesh_device(mesh))
+    enc = AsymEncryptor(Parms(n, parms.moduli[limbs], parms.scale),
+                        device=mesh_device(mesh))
 
     def run(values, pk0, pk1, seed_words):
-        enc = keyed.encryptor(pk0[limbs], pk1[limbs])
+        enc.set_key(pk0[limbs], pk1[limbs])
         pt, pte, u, e1, ok = enc.prologue(values, seed_words)
         u, e1, pte, ok = _gather(group, u, e1, pte,
                                  ok[:, None].to(torch.int64))

@@ -44,13 +44,13 @@ import torch
 
 from .ckks.asym import gen_pk_batch, make_asym_encryptor
 from .ckks.fast import make_fused_encryptor
-from .ckks.limbwise import LimbscanEncryptor
+from .ckks.limbwise import make_limbscan_encryptor
 from .ckks.stream import asym_encrypt_stream, sym_encrypt_stream
-from .ckks.sym import decrypt_batch, sym_encrypt_batch
+from .ckks.sym import make_decryptor, sym_encrypt_batch
 from .config import PRIMES_27BIT, Parms, default_parms
 from .convert import CUDA, state_to_device
 from .io import serialize
-from .ops.encode import decode, ifft_root_tables_from_file, index_map_np
+from .ops.encode import ifft_root_tables_from_file, index_map_np, make_decoder
 
 # Largest |decode - value| that passes (ckks_tests_common.c:228).
 DECODE_TOLERANCE = 0.1
@@ -98,12 +98,14 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False,
     args = state_to_device(values_np, sk_np, share_np, err_np, dev)
     sk = args[1]
     results = []
+    decryptor = make_decryptor(parms, device=dev)
+    decoder = make_decoder(parms, dev)
 
     def decode_check(c0, c1):
         c0, c1 = (torch.as_tensor(np.asarray(c).astype(np.int64),
                                   device=dev) for c in (c0, c1))
-        centered = decrypt_batch(c0, c1, sk, parms)
-        return max(float(np.abs(decode(centered[i], parms).cpu().numpy()
+        centered = decryptor(c0, c1, sk)
+        return max(float(np.abs(decoder(centered[i]).cpu().numpy()
                                 - values_np).max())
                    for i in range(parms.nprimes))
 
@@ -126,7 +128,7 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False,
                 bool(out["ok"].all()))
 
     # Baseline: limb-scan / reference / forward.
-    base = host(LimbscanEncryptor(parms, "reference", "forward", dev)(*args))
+    base = host(make_limbscan_encryptor(parms, device=dev)(*args))
     base_ct = base[:2]
     record("limbwise layout=reference order=forward [baseline]", *base,
            False)
@@ -137,7 +139,8 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False,
         if (layout, order) == ("reference", "forward") or (
                 quick and (layout, order) == ("parallel", "reverse")):
             continue
-        c0, c1, ok = host(LimbscanEncryptor(parms, layout, order, dev)(*args))
+        c0, c1, ok = host(make_limbscan_encryptor(parms, layout, order=order,
+                                                  device=dev)(*args))
         if order == "reverse":
             c0, c1 = c0[::-1], c1[::-1]
         record(f"limbwise layout={layout} order={order}", c0, c1, ok, False)
@@ -199,8 +202,8 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False,
                 fast=True)
             loaded[int(q)] = (pairs[:, 0].copy(), pairs[:, 1].copy())
     bc0, bc1 = (torch.as_tensor(c, device=dev) for c in base_ct)
-    want = decrypt_batch(bc0, bc1, sk, parms)
-    got = decrypt_batch(bc0, bc1, sk, parms, "lazy", loaded)
+    want = decryptor(bc0, bc1, sk)
+    got = make_decryptor(parms, "lazy", loaded, dev)(bc0, bc1, sk)
     passed = bool(torch.equal(got, want))
     results.append(("decrypt intt=lazy(loaded fast tables)", passed, 0.0,
                     passed))

@@ -15,6 +15,7 @@ from seal_embedded_tpu.io import network as jnet
 from seal_embedded_tpu.io import serialize as jser
 from seal_embedded_tpu.ops.encode import decode as jdecode
 from seal_embedded_tpu_torch import api as tapi
+from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
 from seal_embedded_tpu_torch.ckks.limbwise import expand_c1
 from seal_embedded_tpu_torch.ckks.sym import decrypt_batch
 from seal_embedded_tpu_torch.config import default_parms
@@ -73,8 +74,8 @@ def test_setup_from_sk_seed_and_sk_path(tmp_path):
     jfrom_file = japi.se_setup_custom(N, L, SCALE, japi.SYM, sk_path=str(path))
     assert np.array_equal(from_file.sk_signed, jfrom_file.sk_signed)
     assert np.array_equal(from_file.sk_signed, ctx.sk_signed)
-    assert isinstance(from_file._sym_fn, tapi.SymEncryptor)
-    assert from_file._asym_fn is None
+    assert isinstance(from_file._sym_fn.fn, SymEncryptor)
+    assert from_file._asym_fn is None and from_file._pk is None
 
 
 def test_setup_asym_from_pk_seed_and_pk_dir(tmp_path):
@@ -83,10 +84,10 @@ def test_setup_asym_from_pk_seed_and_pk_dir(tmp_path):
         got = getattr(ctx, k)
         assert got.dtype == np.uint32 and got.shape == (L, N)
         assert np.array_equal(got, getattr(jctx, k)), k
-    # The encryptor holds the pk and its Shoup quotients.
-    enc = ctx._asym_fn
-    assert torch.equal(enc.pk0, torch.as_tensor(ctx.pk0.astype(np.int64)))
-    assert enc.pk1_quot.shape == (L, N)
+    # The context holds the pk on its device; the encryptor takes it per
+    # call, with its Shoup quotients.
+    assert torch.equal(ctx._pk[0], torch.as_tensor(ctx.pk0.astype(np.int64)))
+    assert ctx._asym_fn.encryptor.pk1_quot.shape == (L, N)
     jser.write_pk(str(tmp_path), jctx.parms,
                   list(zip(jctx.pk0, jctx.pk1)))
     loaded = tapi.se_setup_custom(N, L, SCALE, tapi.ASYM, pk_dir=str(tmp_path),
@@ -269,13 +270,15 @@ def test_se_cleanup_zeroes_only_own_copies():
     tapi.se_cleanup(ctx)
     assert np.array_equal(sk, keep)
     assert not host.any() and not bool(dev.any())
-    for k in ("sk_signed", "pk0", "pk1", "_sk", "_sym_fn", "_asym_fn"):
+    for k in ("sk_signed", "pk0", "pk1", "_sk", "_pk", "_sym_fn", "_asym_fn"):
         assert getattr(ctx, k) is None, k
     actx = tapi.se_setup_custom(N, L, SCALE, tapi.ASYM, sk=sk,
                                 pk_seed=seed_bytes(4), device=CPU)
-    enc, pk0 = actx._asym_fn, actx.pk0
+    tapi.se_encrypt(actx, _values())
+    enc, pk0, dev_pk = actx._asym_fn.encryptor, actx.pk0, actx._pk
     tapi.se_cleanup(actx)
     assert not pk0.any() and actx.pk0 is None and actx._asym_fn is None
+    assert actx._pk is None and not any(bool(t.any()) for t in dev_pk)
     assert not any(bool(getattr(enc, k).any())
                    for k in ("pk0", "pk1", "pk0_quot", "pk1_quot"))
     assert np.array_equal(sk, keep)

@@ -15,6 +15,7 @@ from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor
 from seal_embedded_tpu_torch.ckks.fast import (EncryptorBase, SymEncryptor,
                                                make_fused_encryptor)
 from seal_embedded_tpu_torch.config import Parms
+from seal_embedded_tpu_torch.ops.encode import make_decoder
 from seal_embedded_tpu_torch.ops.kernels import calibrate as kcal
 from seal_embedded_tpu_torch.parallel import comm, dryrun, launch
 from seal_embedded_tpu_torch.parallel import limbwise as plw
@@ -26,7 +27,6 @@ torch.set_num_threads(2)
 
 P = Parms(degree=64, moduli=(1053818881, 1053360129), scale=2.0 ** 20)
 PK = np.ones((2, 64), dtype=np.uint32)
-SHARE = torch.zeros((1, 16), dtype=torch.int64)
 
 
 def _device_of(made):
@@ -39,9 +39,9 @@ def _device_of(made):
         return made.q.device
     if isinstance(made, tuple):
         return made[0].device
-    if isinstance(made, dict):          # an expander's output
+    if isinstance(made, dict):          # an asym factory's output
         return made["c1"].device
-    return made.__self__.q.device       # make_from_pte_encryptor's method
+    return made.device                  # a compiled factory (graphs.Graphed)
 
 
 def _asym_inputs(d):
@@ -67,8 +67,9 @@ CASES = {
         P, **d)(*_asym_inputs(d)),
     "mix_input": lambda **d: kcal.mix_input(**d),
     "run_mix": lambda **d: kcal.run_mix("keccak", 8, **d)(),
-    "make_c1_expander": lambda **d: dict(zip(
-        ("c1", "ok"), tlw.make_c1_expander(P, **d)(SHARE))),
+    "make_c1_expander": lambda **d: tlw.make_c1_expander(P, **d),
+    "make_decryptor": lambda **d: tsym.make_decryptor(P, **d),
+    "make_decoder": lambda **d: make_decoder(P, **d),
     "pk_to_device": lambda **d: convert.pk_to_device(PK, PK, **d),
     "asym_state_to_device": lambda **d: convert.asym_state_to_device(
         np.zeros((1, 8)), np.zeros((1, 16)), **d),

@@ -68,9 +68,9 @@ def test_limbscan_vs_jax(layout, order):
                                       device="cpu")
     got = enc(*state_to_device(*_inputs(2, P.degree, seed=1), device="cpu"))
     _assert_out_equal(got, want)
-    if order == "reverse":
-        assert enc.moduli == tuple(reversed(P.moduli))
-        assert enc.r0.tolist() == [jcfg.const_ratio(q)[0]
+    if order == "reverse":      # the compiled function's LimbscanEncryptor
+        assert enc.fn.moduli == tuple(reversed(P.moduli))
+        assert enc.fn.r0.tolist() == [jcfg.const_ratio(q)[0]
                                    for q in reversed(P.moduli)]
 
 

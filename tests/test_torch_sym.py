@@ -98,8 +98,8 @@ def test_decrypt_batch_vs_jax(impl):
                            loaded_intt=loaded))(
         jnp.asarray(out["c0"].numpy().astype(np.uint32)),
         jnp.asarray(out["c1"].numpy().astype(np.uint32)), jnp.asarray(sk))
-    got = tsym.make_decryptor(parms_from_jax(P))(
-        out["c0"], out["c1"], args[1], intt_impl=impl, loaded_intt=loaded)
+    got = tsym.make_decryptor(parms_from_jax(P), impl, loaded, "cpu")(
+        out["c0"], out["c1"], args[1])
     assert np.array_equal(got.numpy(), np.asarray(want))
     for i in range(len(P.moduli)):
         assert torch.equal(got[i], out["pte"])
