@@ -11,9 +11,10 @@ port of ``ckks/asym.py``); the limb-scan encryptor in its reference,
 parallel and reverse-order forms (``ckks/limbwise.py``) and the per-prime
 ``sym_encrypt_batch`` (``ckks/sym.py``), with ``expand_c1`` and
 ``decrypt_batch`` as their checks; the public API (``api.py``) and the
-per-prime streams (``ckks/stream.py``) on the same inputs; the compiled
-factories (``graphs.py``: each captured as a CUDA graph per input
-signature and replayed); and the op-mix calibration that gives every
+per-prime streams (``ckks/stream.py``, each compiled as one graph)
+on the same inputs; the compiled factories (``graphs.py``: each captured
+as a CUDA graph per input signature and replayed), the scale-out ones
+with their NCCL collectives; and the op-mix calibration that gives every
 kernel its measured ceiling.  Phases, one line each:
 
 1. device: the card, its power limit, nvcc's version;
@@ -45,26 +46,42 @@ kernel its measured ceiling.  Phases, one line each:
    ``SymEncryptor``, the sent bytes on 16 messages, the seed-only blobs
    through ``expand_c1`` and ``decrypt_batch``, ``se_decrypt_decode``) and
    asym from a pk directory written by ``io.serialize`` (golden rows);
-   ``sym_encrypt_stream`` forward and reverse and ``asym_encrypt_stream``
-   with every limb equal to the batch's after the stream was consumed,
-   timed beside the batch plus its fetch to host memory, host waits per
-   limb, peaks (a sym stream's may not exceed its batch's); the adapter's
-   CRT verify of two of the card's ciphertexts, whole and with one
-   coefficient of prime 2 flipped;
+   the compiled streams (``graphs.Chain``: the prologue and every limb as
+   one graph with an event per limb, one entry per signature) through
+   ``sym_encrypt_stream`` forward and reverse and ``asym_encrypt_stream``:
+   the first call's capture and the memory it leaves reserved, every limb
+   equal to the eager stream's and the batch's, launches per stream equal
+   to the eager stream's, a stream abandoned after its first limb and a
+   whole one after it, no capture after the first call, timed beside the
+   eager stream and the compiled batch plus its fetch (rotated rounds),
+   host waits per limb, the footprint (pool resident plus the peak above
+   the inputs; a sym stream's may not exceed the compiled batch's) and the
+   eager peaks (a sym stream's may not exceed its batch's); two asym
+   streams of different B and keys, limb by limb in turn, each equal to its
+   batch; ``se_encrypt_streaming`` sym and asym twice each, the second call
+   replaying the context's cached stream, and ``se_cleanup`` zeroing the
+   stream's copy of the key; the compiled sym stream at n = 16384, L = 13,
+   B = 64 (one graph of 13 limb events, KE's 2-CTA clusters in its
+   prologue), golden rows limb by limb, a second call that captures
+   nothing; the adapter's CRT verify of two of the card's
+   ciphertexts, whole and with one coefficient of prime 2 flipped;
 6. the launch counters of each headline run, each 5b run, each phase 7
    and phase 8 run and of the calibration;
 7. scale-out at world size 1 (one NCCL rank, ``parallel/``), at the
-   headline's shape: the limb-sharded sym encryptor on a (1, 1) mesh
-   (equal to the limb-scan parallel layout, decrypted), the limb-sharded
-   asym one (golden rows, equal to ``AsymEncryptor``),
+   headline's shape, every sharded function compiled (``graphed``, its
+   NCCL collectives inside the graph): the limb-sharded sym encryptor on
+   a (1, 1) mesh (equal to the limb-scan parallel layout, decrypted), the
+   limb-sharded asym one (golden rows, equal to ``AsymEncryptor``),
    ``sym_encrypt_sharded`` (equal to ``sym_encrypt_batch``) and the
-   multi-host encryptor on (1, 1, 1), each timed beside its
-   single-device path (alternated pairs, device busy, peak above the
-   inputs), and the sym path's two collectives alone; the limb-sharded
-   sym at n = 16384, L = 13; the coefficient-sharded NTT in both plans
-   at n = 4096 and 16384 against KN; the config sweep at degree 4096 on
-   the card; a ``CheckpointedRunner`` restart of the sym headline,
-   bit-exact.
+   multi-host encryptor on (1, 1, 1), each against its eager run (bits,
+   ``Shards.index``, launches and ``comm.counts`` per replay) and timed
+   beside it and its single-device path (alternated pairs, host clock,
+   device busy, idle share, peak above the inputs, first call), and the
+   sym path's two collectives alone; the limb-sharded sym at n = 16384,
+   L = 13; the compiled coefficient-sharded NTT in both plans at n =
+   4096 and 16384 against KN and its eager run; the config sweep at
+   degree 4096 on the card; a ``CheckpointedRunner`` restart of the sym
+   headline, bit-exact.
 
 8. compiled entry points (``graphs.py``), at the headline's shape: every
    compiled factory (the fused sym encryptor, the limb-scan encryptor in
@@ -140,7 +157,7 @@ from seal_embedded_tpu_torch.parallel import multihost as mh
 from seal_embedded_tpu_torch.parallel.coeff_ntt import ntt_coeff_sharded
 from seal_embedded_tpu_torch.parallel.limbwise import (
     make_asym_limb_sharded_encryptor, make_limb_sharded_encryptor)
-from seal_embedded_tpu_torch.parallel.mesh import (make_mesh,
+from seal_embedded_tpu_torch.parallel.mesh import (Shards, make_mesh,
                                                   sym_encrypt_sharded)
 from seal_embedded_tpu_torch.utils.checkpoint import (CheckpointJournal,
                                                       CheckpointedRunner)
@@ -934,6 +951,200 @@ def check_limbs(limbs, c0, c1, walk, name):
                                      "the batch")
 
 
+def rotated_host_ms(fns, rounds=STREAM_ITERS):
+    """Median host ms of each fn() (each ends with its results in host
+    memory), started on an idle card, after one warm-up call each; round
+    i starts at fn i mod len(fns), so the host's drift falls on all
+    alike.  Returns (medians, each fn's last result)."""
+    last = [fn() for fn in fns]
+    times = [[] for _ in fns]
+    for i in range(rounds):
+        for k in range(len(fns)):
+            j = (i + k) % len(fns)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last[j] = fns[j]()
+            times[j].append((time.perf_counter() - t0) * 1e3)
+    return [statistics.median(t) for t in times], last
+
+
+def pool_resident(fn):
+    """fn() with the allocator's cache emptied before and after: (its
+    result, the bytes it left reserved).  fn ends with its results in
+    host memory, so what stays is what a first call captured: its
+    graphs' pools and static inputs."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, torch.cuda.memory_reserved() - before
+
+
+def stream_cases(dev, parms, args, ainputs):
+    """(tag, walk, compiled stream through its public entry point, the
+    cached Stream it runs, its inputs, eager stream, eager batch,
+    compiled batch) of each stream of phase 5b."""
+    fwd = SymEncryptor(parms, dev)
+    rev = LimbscanEncryptor(parms, "reference", "reverse", dev)
+    asym = AsymEncryptor(parms, *ainputs[1:3], dev)
+    return (
+        ("sym forward", [0, 1, 2],
+         lambda *a: stream.sym_encrypt_stream(*a, parms, "f64", "forward"),
+         stream.sym_stream(parms, "forward", dev),
+         args, lambda: stream.sym_stream_with(fwd, *args),
+         lambda: fwd(*args), make_fused_encryptor(parms, device=dev)),
+        ("sym reverse", [2, 1, 0],
+         lambda *a: stream.sym_encrypt_stream(*a, parms, "f64", "reverse"),
+         stream.sym_stream(parms, "reverse", dev),
+         args, lambda: stream.sym_stream_with(rev, *args, order="reverse"),
+         lambda: rev(*args),
+         make_limbscan_encryptor(parms, "reference", "sf", "reverse", dev)),
+        ("asym forward", [0, 1, 2],
+         lambda *a: stream.asym_encrypt_stream(*a, parms, "f64", "forward"),
+         stream.asym_stream(parms, "forward", dev),
+         ainputs, lambda: stream.asym_stream_with(asym, ainputs[0],
+                                                  ainputs[3]),
+         lambda: asym(ainputs[0], ainputs[3]),
+         make_asym_encryptor(parms, device=dev)))
+
+
+def phase_streams(dev, smi, parms, args, ainputs):
+    """Phase 5b's streams at the headline's shape: each compiled stream's
+    first call (the capture) and its footprint, every limb against the
+    eager stream's and the batch's, launches per call against the eager
+    stream's, a stream abandoned after its first limb and a whole one
+    after it, times beside the eager stream and the compiled batch +
+    fetch, and the eager and compiled peaks against the batch's.
+    Returns the launch counts of one compiled stream of each."""
+    runs = {}
+    for (tag, walk, compiled, cached, inputs, eager, batch,
+         cbatch) in stream_cases(dev, parms, args, ainputs):
+        name = f"stream {tag}"
+        torch.cuda.synchronize()
+        cached.chain.entries.clear()
+        compiled_of(cbatch).entries.clear()
+
+        def first():
+            t0 = time.perf_counter()
+            return list(compiled(*inputs)), (time.perf_counter() - t0) * 1e3
+        (limbs, first_ms), resident = pool_resident(first)
+        entry, = cached.chain.entries.values()
+        out, _, batch_peak = peak_run(batch)
+        want = [out[k].cpu() for k in ("c0", "c1")]
+        del out
+        check_limbs(limbs, *want, walk, f"compiled {name}")
+        limbs, eager_counts, eager_peak = peak_run(lambda: list(eager()))
+        check_limbs(limbs, *want, walk, f"eager {name}")
+        limbs, runs[name], peak = peak_run(lambda: list(compiled(*inputs)))
+        check_limbs(limbs, *want, walk, f"compiled {name} replay")
+        if runs[name] != eager_counts:
+            raise AssertionError(f"{name}: launches per replayed stream "
+                                 f"{runs[name]}, eager {eager_counts}")
+        if tag.startswith("sym") and eager_peak > batch_peak:
+            raise AssertionError(f"eager {name}: peak {eager_peak} B above "
+                                 f"the batch's {batch_peak} B")
+        _, batch_resident = pool_resident(
+            lambda: fetch_to_pinned(cbatch(*inputs)))
+        _, _, cbatch_peak = peak_run(lambda: fetch_to_pinned(cbatch(*inputs)))
+        footprint = resident + peak
+        batch_footprint = batch_resident + cbatch_peak
+        if tag.startswith("sym") and footprint > batch_footprint:
+            raise AssertionError(f"compiled {name}: {footprint} B with its "
+                                 f"pool, above the compiled batch's "
+                                 f"{batch_footprint} B")
+        # A stream of other inputs abandoned after its first limb; the
+        # next stream copies its inputs in and replays.
+        other = compiled(*(t.flip(0) for t in inputs))
+        next(other)
+        del other
+        check_limbs(list(compiled(*inputs)), *want, walk,
+                    f"compiled {name} after an abandoned one")
+        if list(cached.chain.entries.values()) != [entry]:
+            raise AssertionError(f"{name}: a later call captured again")
+        (ms, eager_ms, batch_ms), (limbs, _, _) = rotated_host_ms(
+            [lambda: list(compiled(*inputs)), lambda: list(eager()),
+             lambda: fetch_to_pinned(cbatch(*inputs))])
+        waits = [l["wait_ms"] for l in limbs]
+        del limbs, want
+        mib = 2 ** 20
+        print(f"[5b stream] {tag} n={N} L={L} B={B}: compiled through "
+              f"the public entry point (one graph of {len(entry.events)} "
+              f"limb events, one entry) every "
+              f"limb equal to the eager stream's and the batch's, also "
+              f"after a stream abandoned after its first limb, no capture "
+              f"after the first call; launches per stream "
+              f"{sum(runs[name].values())} "
+              f"= eager's; streamed {ms:.3f} ms compiled vs {eager_ms:.3f} "
+              f"eager vs compiled batch + fetch {batch_ms:.3f} ms (host "
+              f"clock to the last limb in host memory, medians of "
+              f"{STREAM_ITERS} rotated rounds); host waits "
+              f"{sum(waits):.3f} ms ({' / '.join(f'{w:.3f}' for w in waits)}"
+              f" per limb); first call {first_ms:.1f} ms (two eager warm-up "
+              f"streams and one capture); footprint "
+              f"{footprint / mib:.1f} MiB ({resident / mib:.1f} resident + "
+              f"{peak / mib:.1f} peak above the inputs) vs compiled batch "
+              f"{batch_footprint / mib:.1f} ({batch_resident / mib:.1f} + "
+              f"{cbatch_peak / mib:.1f}); eager peaks above the inputs "
+              f"{eager_peak / mib:.1f} vs batch {batch_peak / mib:.1f} MiB; "
+              f"{smi}")
+    return runs
+
+
+def interleaved_asym_streams(parms, ainputs):
+    """Two asym streams through asym_encrypt_stream, of different B and
+    different keys, limb by limb in turn: each equal to the compiled
+    batch under its own key."""
+    values, pk0, pk1, seeds = ainputs
+    half = values.shape[0] // 2
+    cases = [(values, pk0, pk1, seeds),
+             (values[:half], pk0.roll(1, 1), pk1.roll(1, 1), seeds[:half])]
+    batch = make_asym_encryptor(parms, device=values.device)
+    wants = []
+    for case in cases:
+        out = batch(*case)
+        wants.append([out[k].cpu() for k in ("c0", "c1")])
+        del out
+    runs = [stream.asym_encrypt_stream(*case, parms, "f64", "forward")
+            for case in cases]
+    got = [[], []]
+    for _ in range(parms.nprimes):
+        for k, run in enumerate(runs):
+            got[k].append(next(run))
+    for k, (limbs, want) in enumerate(zip(got, wants)):
+        check_limbs(limbs, *want, list(range(parms.nprimes)),
+                    f"interleaved asym stream {k}")
+    print(f"[5b stream] two asym streams, B={values.shape[0]} and "
+          f"B={half} under different keys, limb by limb in turn: each "
+          f"equal to the compiled batch under its own key")
+
+
+def api_streaming(ctx, values, share_seeds, err_seeds, compiled, kind):
+    """se_encrypt_streaming on SEND_ROWS messages, twice: the sent bytes
+    equal ct_component_bytes of the limbs, and the second call replays
+    the context's cached compiled stream (no capture)."""
+    rows = slice(0, SEND_ROWS)
+    shares = None if share_seeds is None else share_seeds[rows]
+    entries = []
+    for _ in range(2):
+        send, store = network.collecting_sender()
+        limbs = stream.se_encrypt_streaming(ctx, values[rows], shares,
+                                            err_seeds[rows], send)
+        want = [serialize.ct_component_bytes(l[key][b]) for l in limbs
+                for b in range(SEND_ROWS) for key in ("c0", "c1")]
+        if store != want:
+            raise AssertionError(f"api streaming {kind}: sent bytes differ")
+        entries.append(list(compiled.chain.entries.values()))
+    if entries[0] != entries[1] or compiled not in ctx._streams:
+        raise AssertionError(f"api streaming {kind}: the second call did "
+                             "not replay the cached chain")
+    print(f"[5b api] se_encrypt_streaming {kind} on {SEND_ROWS} messages, "
+          f"twice: {len(store)} components sent per call, equal to "
+          f"ct_component_bytes of the limbs; the second call replayed the "
+          f"compiled stream the first one captured")
+
+
 def phase_api_stream(dev, smi):
     """Phase 5b: the public API and per-prime streaming at the headline's
     shape and inputs.  Returns the launch counts of each run."""
@@ -1000,7 +1211,15 @@ def phase_api_stream(dev, smi):
           f"equal to ct_component_bytes (c0 then c1, per prime, per "
           f"message); send_seed_only: {SEND_ROWS} blobs, expand_c1 on {dev} "
           f"gives c1, decrypt_batch gives pte back")
+    sstream = stream.sym_stream(parms, "forward", dev)
+    api_streaming(ctx, values, share_seeds, err_seeds, sstream, "sym")
     api.se_cleanup(ctx)
+    entry, = sstream.chain.entries.values()
+    kept = []
+    graphs.map_tensors((entry.inputs, entry.carry), kept.append)
+    if any(bool(t.any()) for t in kept):
+        raise AssertionError("se_cleanup left the key in the stream's "
+                             "static inputs or hand-offs")
 
     # API asym from a pk written by the port's serializer.
     agold = load_golden("asym", N, L)
@@ -1016,40 +1235,16 @@ def phase_api_stream(dev, smi):
     print(f"[5b api] asym se_setup_custom(pk_dir) + se_encrypt_seeded "
           f"n={N} L={L} B={B}: {golden_verified(agold)}")
 
-    # Streams: every limb against the batch after the stream is consumed;
-    # streamed time beside batch + fetch, peaks above the shared inputs.
-    rev = LimbscanEncryptor(parms, "reference", "reverse", dev)
+    # Streams: compiled (one graph chain a signature) against the eager
+    # stream and the batch; times, waits, footprints; se_encrypt_streaming.
     aargs = asym_state_to_device(avalues, aseeds, dev)
     apk = pk_to_device(agold["pk0"], agold["pk1"], dev)
-    cases = (
-        ("sym forward", [0, 1, 2], lambda: stream.sym_encrypt_stream(
-            *args, parms, "f64", "forward"),
-         lambda: SymEncryptor(parms, dev)(*args)),
-        ("sym reverse", [2, 1, 0], lambda: stream.sym_encrypt_stream(
-            *args, parms, "f64", "reverse"), lambda: rev(*args)),
-        ("asym forward", [0, 1, 2], lambda: stream.asym_encrypt_stream(
-            aargs[0], *apk, aargs[1], parms, "f64", "forward"),
-         lambda: AsymEncryptor(parms, *apk, dev)(*aargs)))
-    for tag, walk, streamed, batch in cases:
-        limbs, runs[f"stream {tag}"], peak = peak_run(lambda: list(streamed()))
-        want, _, batch_peak = peak_run(batch)
-        check_limbs(limbs, want["c0"], want["c1"], walk, f"stream {tag}")
-        del limbs, want
-        ms, limbs = host_time_ms(lambda: list(streamed()))
-        waits = [l["wait_ms"] for l in limbs]
-        del limbs
-        batch_ms, _ = host_time_ms(lambda: fetch_to_pinned(batch()))
-        if tag.startswith("sym") and peak > batch_peak:
-            raise AssertionError(f"stream {tag}: peak {peak} B above the "
-                                 f"batch's {batch_peak} B")
-        print(f"[5b stream] {tag} n={N} L={L} B={B}: every limb equal to "
-              f"the batch's (checked after the stream was consumed); "
-              f"streamed {ms:.3f} ms to the last limb in host memory vs "
-              f"batch + fetch {batch_ms:.3f} ms (host clock, median of "
-              f"{STREAM_ITERS}); host waits {sum(waits):.3f} ms "
-              f"({' / '.join(f'{w:.3f}' for w in waits)} per limb); peak "
-              f"above inputs {peak / 2 ** 20:.1f} MiB vs batch "
-              f"{batch_peak / 2 ** 20:.1f} MiB; {smi}")
+    runs.update(phase_streams(dev, smi, parms, args, (aargs[0], *apk,
+                                                      aargs[1])))
+    interleaved_asym_streams(parms, (aargs[0], *apk, aargs[1]))
+    astream = stream.asym_stream(parms, "forward", dev)
+    api_streaming(actx, avalues, None, [kc.words_to_bytes_np(w)
+                                        for w in aseeds], astream, "asym")
 
     # Adapter: the CRT verify of two of the card's ciphertexts (host only).
     out = api.se_encrypt_seeded(actx, avalues[:2],
@@ -1085,6 +1280,71 @@ def phase_api_stream(dev, smi):
     return runs
 
 DEEP_N, DEEP_L, DEEP_B = 16384, 13, 64
+DEEP_ROUNDS = 3
+
+
+def deep_inputs(gold, dev):
+    """DEEP_B messages and seeds made from seed 4, rows 0..G-1 the golden
+    messages and seeds, on `dev`."""
+    G = gold["v"].shape[0]
+    rng = np.random.default_rng(4)
+    values = rng.uniform(-1, 1, (DEEP_B, DEEP_N // 2)).astype(np.float32)
+    share, err = (rng.integers(0, 2 ** 32, (DEEP_B, 16)) for _ in range(2))
+    values[:G] = gold["v"]
+    share[:G], err[:G] = golden_seeds(G)
+    return state_to_device(values, gold["sk"], share, err, dev)
+
+
+def phase_deep_stream(dev, smi):
+    """The compiled sym stream at n = 16384, L = 13, B = DEEP_B: one graph
+    (KE as 2-CTA clusters in its prologue) of 13 limb events, one entry,
+    golden rows limb by limb, every limb equal to the eager stream's and
+    SymEncryptor's, and a second call that captures nothing.  Returns the
+    launch counts of one compiled stream."""
+    parms = default_parms(DEEP_N, DEEP_L)
+    gold = load_golden("sym", DEEP_N, DEEP_L)
+    G = gold["v"].shape[0]
+    args = deep_inputs(gold, dev)
+    compiled = stream.sym_stream(parms, "forward", dev)
+    torch.cuda.synchronize()
+    compiled.chain.entries.clear()
+    limbs = list(compiled(*args))
+    entry, = compiled.chain.entries.values()
+    host = {k: torch.as_tensor(np.stack([l[k] for l in limbs])
+                               .astype(np.int64)) for k in ("c0", "c1")}
+    check_golden_rows({**host, "ok": torch.ones(1, dtype=torch.bool)}, gold,
+                      "compiled deep stream", ("c0", "c1"))
+    enc = SymEncryptor(parms, dev)
+    out = enc(*args)
+    want = [out[k].cpu() for k in ("c0", "c1")]
+    del out
+    walk = list(range(DEEP_L))
+    check_limbs(limbs, *want, walk, "compiled deep stream")
+    limbs, eager_counts, _ = counted_run(
+        lambda: list(stream.sym_stream_with(enc, *args)))
+    check_limbs(limbs, *want, walk, "eager deep stream")
+    limbs, counts, _ = counted_run(lambda: list(compiled(*args)))
+    check_limbs(limbs, *want, walk, "compiled deep stream, second call")
+    if list(compiled.chain.entries.values()) != [entry] or len(
+            entry.events) != DEEP_L:
+        raise AssertionError("deep stream: the second call captured again")
+    if counts != eager_counts:
+        raise AssertionError(f"deep stream: launches {counts}, eager "
+                             f"{eager_counts}")
+    (ms, eager_ms), _ = rotated_host_ms(
+        [lambda: list(compiled(*args)),
+         lambda: list(stream.sym_stream_with(enc, *args))], DEEP_ROUNDS)
+    del limbs, want
+    print(f"[5b deep] compiled sym stream n={DEEP_N} L={DEEP_L} B={DEEP_B}:"
+          f" one graph of {len(entry.events)} limb events, one entry, "
+          f"golden_sym_{DEEP_N}_{DEEP_L}.npz rows 0..{G - 1} bit-exact limb "
+          f"by limb, every limb equal to the eager stream's and "
+          f"SymEncryptor's, the second call captured nothing; launches "
+          f"{sum(counts.values())} = eager's; {ms:.3f} ms compiled vs "
+          f"{eager_ms:.3f} eager (host clock, medians of {DEEP_ROUNDS} "
+          f"rotated rounds); {smi}")
+    return counts
+
 COEFF_ROWS = 64
 SWEEP_DEGREE, SWEEP_BATCH = 4096, 16
 
@@ -1116,18 +1376,38 @@ def paired_cuda_ms(fn, other, pairs=TIME_ITERS):
     return tuple(statistics.median(t) for t in times)
 
 
-def report_sharded(tag, verified, fn, single, peak, single_peak, counts,
-                   comms, smi, shape=None):
+def require_shards_equal(name, got, want):
+    """Two Shards: the same blocks (torch.equal) and the same index."""
+    if not isinstance(got, Shards) or got.index != want.index:
+        raise AssertionError(f"{name}: the compiled output's Shards index "
+                             f"differs from the eager run's")
+    require_same(name, got, want, tuple(want))
+
+
+def report_sharded(tag, verified, fn, eager, single, peaks, counts, comms,
+                   first_ms, smi, shape=None):
+    """Times of a compiled sharded function beside its eager form and the
+    single-device path; peaks: (compiled, eager, single) above the
+    inputs."""
     ms, single_ms = paired_cuda_ms(fn, single)
-    busy, single_busy = (timeline(f)["busy_ms"] for f in (fn, single))
+    ms, eager_ms = paired_cuda_ms(fn, eager)
+    host, eager_host = paired_host_ms(fn, eager)
+    busy, eager_busy, single_busy = (timeline(f)["busy_ms"]
+                                     for f in (fn, eager, single))
     n, nprimes, batch = shape or (N, L, B)
+    mib = 2 ** 20
     print(f"[7 scale-out] {tag} n={n} L={nprimes} B={batch} at world size "
-          f"1: {verified}; {ms:.3f} ms/batch vs single device "
-          f"{single_ms:.3f} ms (CUDA events, medians of {TIME_ITERS} "
-          f"alternated pairs), device busy {busy:.3f} vs "
-          f"{single_busy:.3f} ms/batch (perf_stages.timeline), peak above "
-          f"the inputs "
-          f"{peak / 2 ** 20:.1f} vs {single_peak / 2 ** 20:.1f} MiB; "
+          f"1: {verified}; compiled: torch.equal to its eager run with the "
+          f"same Shards.index, launches and collectives per replay equal "
+          f"to the eager call's; {ms:.3f} ms/batch vs eager {eager_ms:.3f} "
+          f"vs single device {single_ms:.3f} ms (CUDA events, medians of "
+          f"{TIME_ITERS} alternated pairs), host clock {host:.3f} vs "
+          f"{eager_host:.3f} ms, device busy {busy:.3f} vs "
+          f"{eager_busy:.3f} vs {single_busy:.3f} ms/batch "
+          f"(perf_stages.timeline), idle share {1 - busy / ms:.1%} vs "
+          f"{1 - eager_busy / eager_ms:.1%}, peak above the inputs "
+          f"{peaks[0] / mib:.1f} vs {peaks[1] / mib:.1f} vs "
+          f"{peaks[2] / mib:.1f} MiB; first call {first_ms:.1f} ms; "
           f"launches {counts}; collectives {comms}; {smi}")
 
 
@@ -1148,15 +1428,34 @@ def phase_scale_out(dev, smi):
     runs = {}
     t0 = time.perf_counter()
 
-    def sharded_run(tag, fn, single, check, verified, shape=None):
+    def sharded_run(tag, g, a, single, check, verified, shape=None):
+        """g, a compiled sharded function, on the arguments a: its first
+        call (the capture), then a replay against g's eager form (bits,
+        index, launches, collectives) and the single-device path."""
+        fn, eager = (lambda: g(*a)), (lambda: g.fn(*a))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - start) * 1e3
         comm.counts = {}
         out, runs[tag], peak = peak_run(fn)
-        comms = {k: tuple(v) for k, v in comm.counts.items()}
+        comms = comm.counts
+        comm.counts = {}
+        eager_out, eager_counts, eager_peak = peak_run(eager)
+        require_shards_equal(tag, out, eager_out)
+        if runs[tag] != eager_counts or comms != comm.counts:
+            raise AssertionError(f"{tag}: per replay launches {runs[tag]}, "
+                                 f"collectives {comms}; eager per call "
+                                 f"{eager_counts}, {comm.counts}")
+        del eager_out
         want, _, single_peak = peak_run(single)
         check(out, want, tag)
         del out, want
-        report_sharded(tag, verified, fn, single, peak, single_peak,
-                       runs[tag], comms, smi, shape)
+        report_sharded(tag, verified, fn, eager, single,
+                       (peak, eager_peak, single_peak), runs[tag],
+                       {k: tuple(v) for k, v in comms.items()}, first_ms,
+                       smi, shape)
 
     with tempfile.TemporaryDirectory(dir=scratch) as tmp, \
             launch.process_group(1, 0, str(pathlib.Path(tmp) / "store"),
@@ -1170,7 +1469,7 @@ def phase_scale_out(dev, smi):
             check_decrypts(out, args[1], parms, tag)
 
         sym = make_limb_sharded_encryptor(mesh, parms)
-        sharded_run("limb-sharded sym", lambda: sym(*args),
+        sharded_run("limb-sharded sym", sym, args,
                     lambda: parallel(*args), check_parallel,
                     "torch.equal to LimbscanEncryptor(parallel), "
                     "decrypt_batch gives pte back (canonical, lazy)")
@@ -1181,8 +1480,7 @@ def phase_scale_out(dev, smi):
         def check_asym(out, want, tag):
             check_golden_rows(out, agold, tag)
             require_same(tag, out, want)
-        sharded_run("limb-sharded asym", lambda: asym(aargs[0], *apk,
-                                                       aargs[1]),
+        sharded_run("limb-sharded asym", asym, (aargs[0], *apk, aargs[1]),
                     lambda: single_asym(*aargs), check_asym,
                     f"{golden_verified(agold)}, torch.equal to "
                     "AsymEncryptor")
@@ -1192,14 +1490,14 @@ def phase_scale_out(dev, smi):
         def check_batch(out, want, tag):
             check_golden_rows(out, gold, tag)
             require_same(tag, out, want)
-        sharded_run("sym_encrypt_sharded", lambda: ses(*args),
+        sharded_run("sym_encrypt_sharded", ses, args,
                     lambda: sym_encrypt_batch(*args, parms),
                     check_batch, f"{golden_verified(gold)}, torch.equal to "
                     "sym_encrypt_batch")
 
         multi = mh.make_multihost_encryptor(hmesh, parms)
-        sharded_run("multihost (1, 1, 1)",
-                    lambda: multi(*mh.shard_inputs(hmesh, *args)),
+        sharded_run("multihost (1, 1, 1)", multi,
+                    mh.shard_inputs(hmesh, *args),
                     lambda: parallel(*args), check_parallel,
                     "torch.equal to LimbscanEncryptor(parallel), "
                     "decrypt_batch gives pte back")
@@ -1229,7 +1527,7 @@ def phase_scale_out(dev, smi):
             rng.integers(0, 2 ** 32, (DEEP_B, 16)), dev)
         deep = make_limb_sharded_encryptor(mesh, dparms)
         deep_single = LimbscanEncryptor(dparms, "parallel", device=dev)
-        sharded_run("deep limb-sharded sym", lambda: deep(*dargs),
+        sharded_run("deep limb-sharded sym", deep, dargs,
                     lambda: deep_single(*dargs),
                     lambda out, want, tag: require_same(tag, out, want),
                     "torch.equal to LimbscanEncryptor(parallel)",
@@ -1245,14 +1543,29 @@ def phase_scale_out(dev, smi):
             want = k_ntt.ntt_fwd(x[None].contiguous(), op, quot,
                                  torch.tensor([q], device=dev))[0]
             for variant in ("staged", "4step"):
+                f = ntt_coeff_sharded(mesh, n, q, "data", variant)
+                f(x)                                   # the capture
+                tag = f"ntt_coeff_sharded {variant} n={n}"
                 comm.counts = {}
-                got = ntt_coeff_sharded(mesh, n, q, "data", variant)(x)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"coefficient-sharded NTT "
-                                         f"{variant} n={n} differs from KN")
-                print(f"[7 scale-out] ntt_coeff_sharded {variant} n={n} "
-                      f"({COEFF_ROWS} rows) at world size 1: bit-equal to "
-                      f"KN ntt_fwd; collectives {comm.counts}")
+                got, counts, _ = counted_run(lambda: f(x))
+                comms = comm.counts
+                comm.counts = {}
+                eager_got, eager_counts, _ = counted_run(lambda: f.fn(x))
+                if not (torch.equal(got, want) and torch.equal(eager_got,
+                                                               want)):
+                    raise AssertionError(f"{tag}: differs from KN")
+                if counts != eager_counts or comms != comm.counts:
+                    raise AssertionError(f"{tag}: per replay {counts}, "
+                                         f"{comms}; eager {eager_counts}, "
+                                         f"{comm.counts}")
+                ms, eager_ms = paired_cuda_ms(lambda: f(x), lambda: f.fn(x))
+                del got, eager_got
+                print(f"[7 scale-out] {tag} ({COEFF_ROWS} rows) at world "
+                      f"size 1: compiled and eager bit-equal to KN ntt_fwd; "
+                      f"collectives per replay {comms} = eager's; "
+                      f"{ms:.3f} ms compiled vs {eager_ms:.3f} eager (CUDA "
+                      f"events, medians of {TIME_ITERS} alternated pairs); "
+                      f"{smi}")
 
         result, runs["sweep"], _ = counted_run(lambda: sweep.run_sweep(
             SWEEP_DEGREE, SWEEP_BATCH, device=dev))
@@ -1643,6 +1956,7 @@ def main():
                                    else sym_path)
     for tag, counts in phase_api_stream(dev, smi).items():
         runs[tag] = (counts, asym_path if "asym" in tag else sym_path)
+    runs["deep stream"] = (phase_deep_stream(dev, smi), sym_path)
     for tag, counts in phase_scale_out(dev, smi).items():
         runs[tag] = (counts, {"sym_encrypt_sharded": table_path,
                               "sweep": sym_path + ("ntt_asym",)}.get(

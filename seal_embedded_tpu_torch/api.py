@@ -57,7 +57,8 @@ class SEContext:
 
     sk_signed ({-1,0,1} int32 (n,)) and pk0/pk1 (u32 (L, n), NTT form) are
     the context's own host copies; _sk is the secret key and _pk the
-    public key (int64) on the device.  encode_mode: 'auto' (= 'f64') or
+    public key (int64) on the device; _streams the compiled streams
+    se_encrypt_streaming ran for it.  encode_mode: 'auto' (= 'f64') or
     one of 'sf', 'f64', 'dd', all the same bit-exact encode.
     """
     parms: Parms
@@ -71,6 +72,7 @@ class SEContext:
     _pk: Optional[tuple] = None
     _sym_fn: Optional[Callable] = None
     _asym_fn: Optional[Callable] = None
+    _streams: set = dataclasses.field(default_factory=set)
 
     @property
     def degree(self) -> int:
@@ -305,11 +307,13 @@ def se_cleanup(ctx: SEContext) -> None:
     device copies (the secret key and the public key) with zero_(), before
     the references are dropped; so are the copies the compiled functions
     it used keep of them: the static inputs of its encryptor's and its
-    decryptor's graphs, and the asym encryptor's pk and Shoup quotients.
-    Arrays the caller passed to se_setup_custom are never touched: the
-    context copied them.  Memory that PyTorch's allocators free is not
-    scrubbed, nor are the intermediates in a graph's private pool (for
-    example ntt(s)), so keep contexts short-lived and call se_cleanup as
+    decryptor's graphs, and the static inputs, last hand-offs (ntt(s),
+    or pk and its quotients) and outputs of the stream graphs
+    se_encrypt_streaming ran for it.  Arrays the caller passed to
+    se_setup_custom are never touched: the context copied them.  Memory
+    that PyTorch's allocators free is not scrubbed, nor are the
+    intermediates in a batch graph's private pool (for example ntt(s) or
+    pk's quotients), so keep contexts short-lived and call se_cleanup as
     soon as the last batch is done."""
     for name in ("sk_signed", "pk0", "pk1"):
         buf = getattr(ctx, name)
@@ -321,9 +325,10 @@ def se_cleanup(ctx: SEContext) -> None:
         make_decryptor(ctx.parms, device=ctx.device).scrub()
     for t in ctx._pk or ():
         t.zero_()
-    for fn in (ctx._sym_fn, ctx._asym_fn):
+    for fn in (ctx._sym_fn, ctx._asym_fn, *ctx._streams):
         if fn is not None:
             fn.scrub()
+    ctx._streams.clear()
     ctx._sk = None
     ctx._pk = None
     ctx._sym_fn = None

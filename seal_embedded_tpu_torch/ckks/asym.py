@@ -35,6 +35,10 @@ from ..ops.ntt import ntt_tables_stacked
 from .fast import EncryptorBase
 
 
+# The buffers of an AsymEncryptor's key, in key()'s order.
+KEY_BUFFERS = ("pk0", "pk0_quot", "pk1", "pk1_quot")
+
+
 class AsymEncryptor(EncryptorBase):
     """asym_encrypt_fused for one parameter set, with its tables (see
     EncryptorBase) and a public key, pk0, pk1 and their Shoup quotients
@@ -52,28 +56,33 @@ class AsymEncryptor(EncryptorBase):
     def __init__(self, parms: Parms, pk0=None, pk1=None, device=CUDA):
         super().__init__(parms, device)
         shape = (len(self.moduli), parms.degree)
-        for name in ("pk0", "pk0_quot", "pk1", "pk1_quot"):
+        for name in KEY_BUFFERS:
             self.register_buffer(name, torch.zeros(shape, dtype=torch.int64,
                                                    device=device))
         if pk0 is not None:
             self.set_key(pk0, pk1)
 
-    def set_key(self, pk0, pk1) -> None:
-        """Copy the public key into the pk0, pk1 buffers and recompute
-        their quotients in place.  With pk0, pk1 int64 tensors on the
-        encryptor's device, it only copies and computes on the device, so
-        it can run inside a CUDA graph with pk among the static inputs."""
+    def key(self, pk0, pk1) -> tuple:
+        """(pk0, pk0_quot, pk1, pk1_quot), the key as combine takes it,
+        int64 on the encryptor's device, nothing of the encryptor changed.
+        pk0, pk1: int64 or uint32 (L, n), tensors or arrays; for int64
+        tensors on the device it computes on the device only, so inside a
+        CUDA graph too."""
         qv = self.q[:, None]
-        for name, pk in (("pk0", pk0), ("pk1", pk1)):
-            buf = getattr(self, name)
-            if not isinstance(pk, torch.Tensor):
-                pk = torch.as_tensor(np.asarray(pk).astype(np.int64))
-            buf.copy_(pk)
-            getattr(self, f"{name}_quot").copy_(ma.shoup_quotient(buf, qv))
+        pk0, pk1 = (key_tensor(pk, self.q.device) for pk in (pk0, pk1))
+        return (pk0, ma.shoup_quotient(pk0, qv), pk1,
+                ma.shoup_quotient(pk1, qv))
 
-    def forward(self, values, seed_words):
+    def set_key(self, pk0, pk1) -> None:
+        """Copy the public key (as key() takes it) into the pk0, pk1
+        buffers and their quotients into pk0_quot, pk1_quot."""
+        for name, t in zip(KEY_BUFFERS, self.key(pk0, pk1)):
+            getattr(self, name).copy_(t)
+
+    def forward(self, values, seed_words, key=None):
+        """The batch under `key` (a key()), the encryptor's own if None."""
         pt, pte, u, e1, ok = self.prologue(values, seed_words)
-        c0, c1 = self.combine(u, e1, pte)
+        c0, c1 = self.combine(u, e1, pte, key=key)
         return {"c0": c0, "c1": c1, "pt": pt, "pte": pte, "ok": ok}
 
     def prologue(self, values, seed_words):
@@ -88,14 +97,18 @@ class AsymEncryptor(EncryptorBase):
         e1, counter = sp.sample_cbd(seed_words, counter, n)
         return pt, pt + e0, u, e1, ok & ok_t
 
-    def combine(self, u, e1, pte, limbs=slice(None)):
+    def combine(self, u, e1, pte, limbs=slice(None), key=None):
         """(c0, c1) (l, B, n) of the limbs `limbs` (a slice of the
         per-limb buffers) in one KA launch, from the prologue's signed u,
-        e1 and int64 pte (B, n)."""
+        e1 and int64 pte (B, n), under `key` (a key() of the whole chain)
+        or, if None, the encryptor's own."""
+        if key is None:
+            key = tuple(getattr(self, name) for name in KEY_BUFFERS)
+        pk0, pk0_quot, pk1, pk1_quot = (t[limbs] for t in key)
         return ntt_asym_from_signed(
             u, e1, pte, self.ntt_op[limbs], self.ntt_quot[limbs],
-            self.q[limbs], self.r0[limbs], self.r1[limbs], self.pk0[limbs],
-            self.pk0_quot[limbs], self.pk1[limbs], self.pk1_quot[limbs])
+            self.q[limbs], self.r0[limbs], self.r1[limbs], pk0, pk0_quot,
+            pk1, pk1_quot)
 
 
 def gen_pk_batch(sk_signed, pk_seed_words, ep, parms: Parms):
@@ -143,12 +156,21 @@ def asym_encrypt_batch(values, pk0, pk1, seed_words, parms: Parms,
                               encode_mode)
 
 
+def key_tensor(pk, device) -> torch.Tensor:
+    """A public-key component (int64 or uint32 (L, n), a tensor or an
+    array) as an int64 tensor on `device`."""
+    if isinstance(pk, torch.Tensor):
+        return pk.to(device, torch.int64)
+    return torch.as_tensor(np.asarray(pk).astype(np.int64), device=device)
+
+
 class _KeyedEncryptor:
     """fn(values, pk0, pk1, seed_words) -> dict on one (parms, device), the
     key given per call as the JAX factory's jitted function takes it: one
-    AsymEncryptor, and the call's set_key + forward compiled per input
-    signature (`graphed`), pk among the graph's inputs.  A key that is not
-    an int64 tensor on `device` is moved there first."""
+    AsymEncryptor, and the call's key() + forward compiled per input
+    signature (`graphed`), pk among the graph's inputs (the encryptor's
+    own key buffers stay unused, so two signatures share no key).  A key
+    that is not an int64 tensor on `device` is moved there first."""
 
     def __init__(self, parms: Parms, device: torch.device):
         self.device = device
@@ -156,25 +178,17 @@ class _KeyedEncryptor:
         self.graphed = graphed(self._encrypt, device)
 
     def _encrypt(self, values, pk0, pk1, seed_words):
-        self.encryptor.set_key(pk0, pk1)
-        return self.encryptor(values, seed_words)
-
-    def _key(self, pk):
-        if isinstance(pk, torch.Tensor):
-            return pk.to(self.device, torch.int64)
-        return torch.as_tensor(np.asarray(pk).astype(np.int64),
-                               device=self.device)
+        return self.encryptor(values, seed_words,
+                              self.encryptor.key(pk0, pk1))
 
     def __call__(self, values, pk0, pk1, seed_words):
-        return self.graphed(values, self._key(pk0), self._key(pk1),
-                            seed_words)
+        return self.graphed(values, key_tensor(pk0, self.device),
+                            key_tensor(pk1, self.device), seed_words)
 
     def scrub(self) -> None:
-        """Zero the key's copies: the graphs' static inputs and the
-        encryptor's pk and quotients (the next call sets its own key)."""
+        """Zero the key's copies: the graphs' static inputs (the next call
+        copies its own key in)."""
         self.graphed.scrub()
-        for name in ("pk0", "pk1", "pk0_quot", "pk1_quot"):
-            getattr(self.encryptor, name).zero_()
 
 
 @lru_cache(maxsize=16)

@@ -29,10 +29,11 @@ from ..graphs import graphed
 from ..io.serialize import intt_fast_root_table
 from ..ops import modarith as ma
 from ..ops import sampling as sp
-from ..ops.encode import encode_any
+from ..ops.encode import table_tensors
 from ..ops.kernels.ntt import ntt_fwd
 from ..ops.ntt import (intt_lazy_with_tables, intt_tables, intt_with_tables,
                        ntt_otf, ntt_tables_stacked)
+from .fast import EncryptorBase
 from .limbwise import make_limbscan_encryptor
 
 NTT_VARIANTS = ("table", "otf")
@@ -48,15 +49,66 @@ def _ntt_table(x, moduli):
     return ntt_fwd(x.contiguous(), op, quot, q)
 
 
-def _ntt_otf(x, moduli):
-    """ntt of x int64 (L, B, n) per limb with on-the-fly roots (plain)."""
-    return torch.stack([ntt_otf(x[i], q) for i, q in enumerate(moduli)])
-
-
 def _ntt_s_for_prime(sk_signed, q: int):
     """ntt(expand(s)) for one prime through KN; sk_signed {-1, 0, 1} (n,)."""
     s_modq = sp.ternary_to_modq(sk_signed.to(torch.int64), q)
     return _ntt_table(s_modq.reshape(1, 1, -1), (int(q),))[0, 0]
+
+
+class BatchEncryptor(EncryptorBase):
+    """sym_encrypt_batch for one parameter set and NTT variant, with its
+    tables resident on `device` (see EncryptorBase; the encode tables
+    from `root_tables` and `imap` when given, as table_tensors takes
+    them), so that a call copies nothing from the host and can run inside
+    a CUDA graph (parallel.mesh.sym_encrypt_sharded).
+
+    forward(values, sk_signed, share_words, err_words) -> dict, as
+    sym_encrypt_batch."""
+
+    def __init__(self, parms: Parms, device=CUDA, ntt_variant: str = "table",
+                 root_tables=None, imap=None):
+        if ntt_variant not in NTT_VARIANTS:
+            raise ValueError(f"unknown ntt variant {ntt_variant!r}")
+        super().__init__(parms, device)
+        self.ntt_variant = ntt_variant
+        self.queue_cap = sp.queue_cap_for(parms.degree, self.moduli)
+        if root_tables is not None or imap is not None:
+            for name, t in zip(("imap", "tw_re", "tw_im"), table_tensors(
+                    parms.degree, device, root_tables, imap)):
+                setattr(self, name, t)
+
+    def ntt(self, x):
+        """ntt of x int64 (L, B, n) per limb: through KN in one launch
+        ("table"), or with on-the-fly roots, plain ("otf")."""
+        if self.ntt_variant == "table":
+            return ntt_fwd(x.contiguous(), self.ntt_op, self.ntt_quot, self.q)
+        return torch.stack([ntt_otf(x[i], q)
+                            for i, q in enumerate(self.moduli)])
+
+    def forward(self, values, sk_signed, share_words, err_words):
+        n = self.parms.degree
+        pt, ok = self.encode(values)
+        e, _ = sp.sample_cbd(err_words, sp.counter_zero(
+            (values.shape[0],), values.device), n)
+        pte = pt + e
+        # The share counter chains from prime to prime (sym.py:68-84).
+        a, ok_u = sp.sample_uniform_limbs(share_words, self.moduli, n,
+                                          self.queue_cap)
+        mods = ma.Mod(self.q[:, None, None], self.r0[:, None, None],
+                      self.r1[:, None, None], None)
+        s_modq = sp.ternary_to_modq(sk_signed.to(torch.int64)[None, None],
+                                    mods)
+        ntt_s = self.ntt(s_modq)                               # (L, 1, n)
+        ntt_pte = self.ntt(ma.reduce_pte_i64(pte[None], mods))
+        c0 = ma.add_mod(ma.neg_mod(ma.mul_mod(a, ntt_s, mods), mods),
+                        ntt_pte, mods)
+        return {"c0": c0, "c1": a, "pt": pt, "pte": pte, "ok": ok & ok_u}
+
+
+@lru_cache(maxsize=16)
+def _batch_encryptor(parms: Parms, ntt_variant: str,
+                     device: torch.device) -> BatchEncryptor:
+    return BatchEncryptor(parms, device, ntt_variant)
 
 
 def sym_encrypt_batch(values, sk_signed, share_seed_words, err_seed_words,
@@ -70,32 +122,18 @@ def sym_encrypt_batch(values, sk_signed, share_seed_words, err_seed_words,
     "otf" (roots built per call, ntt_otf; value-identical).
     root_tables / imap: optional loaded IFFT roots and index map, as
     ops.encode.table_tensors takes them.  Returns a dict with c0, c1 int64
-    (L, B, n), pt, pte int64 (B, n) and ok (B,).
+    (L, B, n), pt, pte int64 (B, n) and ok (B,).  Runs the cached
+    BatchEncryptor of (parms, ntt_variant, device), or one built for the
+    loaded tables.
     """
     if ntt_variant not in NTT_VARIANTS:
         raise ValueError(f"unknown ntt variant {ntt_variant!r}")
-    do_ntt = _ntt_table if ntt_variant == "table" else _ntt_otf
-    B = values.shape[0]
-    n = parms.degree
-    dev = values.device
-    moduli = tuple(int(q) for q in parms.moduli)
-
-    pt, ok = encode_any(values, parms, "f64", root_tables, imap)
-    e, _ = sp.sample_cbd(err_seed_words, sp.counter_zero((B,), dev), n)
-    pte = pt + e
-
-    # The share counter chains from prime to prime (sym.py:68-84).
-    a, ok_u = sp.sample_uniform_limbs(share_seed_words, moduli, n,
-                                      sp.queue_cap_for(n, moduli))
-    m = ma.modpack(moduli, dev)
-    mods = ma.Mod(m.q[:, None, None], m.r0[:, None, None],
-                  m.r1[:, None, None], None)
-    s_modq = sp.ternary_to_modq(sk_signed.to(torch.int64)[None, None], mods)
-    ntt_s = do_ntt(s_modq.contiguous(), moduli)               # (L, 1, n)
-    ntt_pte = do_ntt(ma.reduce_pte_i64(pte[None], mods), moduli)
-    c0 = ma.add_mod(ma.neg_mod(ma.mul_mod(a, ntt_s, mods), mods), ntt_pte,
-                    mods)
-    return {"c0": c0, "c1": a, "pt": pt, "pte": pte, "ok": ok & ok_u}
+    if root_tables is None and imap is None:
+        enc = _batch_encryptor(parms, ntt_variant, values.device)
+    else:
+        enc = BatchEncryptor(parms, values.device, ntt_variant, root_tables,
+                             imap)
+    return enc(values, sk_signed, share_seed_words, err_seed_words)
 
 
 def make_sym_encryptor(parms: Parms, layout: str = "reference",

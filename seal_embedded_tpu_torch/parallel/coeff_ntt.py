@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..graphs import graphed
 from ..ops.modarith import MASK32, mul_mod_shoup_lazy
 from ..ops.ntt import ntt_tables
 from . import comm
@@ -123,7 +124,10 @@ def ntt_coeff_sharded(mesh, n: int, q: int, axis: str = "data",
     would be thinner than one column, n/D < D, as in the JAX package) or
     "staged" (one exchange per cross stage).  Returns fn(x) for x int64
     (..., n/D), this rank's block of u32 values below 4q: this rank's
-    block of the canonical NTT, in bit-reversed order as ops.ntt's."""
+    block of the canonical NTT, in bit-reversed order as ops.ntt's.
+    Compiled per input signature on the mesh's device (``graphs.graphed``;
+    the JAX package's cache keys on the number of batch axes, which the
+    signature covers), the all-to-alls or exchanges inside the graph."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     dim = mesh.mesh_dim_names.index(axis)
@@ -150,4 +154,4 @@ def ntt_coeff_sharded(mesh, n: int, q: int, axis: str = "data",
         else:
             v = _four_step(v, op, quot, q, D, d, group)
         return v.reshape(x.shape)
-    return call
+    return graphed(call, dev)

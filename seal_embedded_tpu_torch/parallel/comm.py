@@ -4,7 +4,10 @@ Each function runs one ``torch.distributed`` collective over a group and
 adds its kind and the bytes it delivers to this rank (the result's bytes,
 the measure the JAX package's tests read from the partitioned HLO) to
 ``counts``, as the kernel wrappers count their launches: the tests and
-``chip_smoke.py`` set it to {} before a run and read it after.
+``chip_smoke.py`` set it to {} before a run and read it after.  It is
+registered with the kernel counters (``ops/kernels/counters.py``), so a
+CUDA graph that replays these collectives adds them as it adds its
+launches.
 """
 
 from __future__ import annotations
@@ -12,8 +15,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..ops.kernels import counters
+
 # kind -> [calls, bytes delivered to this rank]
 counts: dict[str, list[int]] = {}
+counters.register("comm", lambda: counts)
 
 # The process-group backend of each device type: NCCL on the card, gloo
 # on the CPU.  The caller's device decides, never what is available.

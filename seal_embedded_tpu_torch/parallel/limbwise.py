@@ -35,6 +35,7 @@ import torch
 from ..ckks.asym import AsymEncryptor
 from ..ckks.limbwise import PARALLEL_COUNTER_STRIDE, LimbscanEncryptor
 from ..config import Parms
+from ..graphs import graphed
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
 from . import comm
@@ -68,11 +69,14 @@ def make_limb_sharded_encryptor(mesh, parms: Parms,
     c0, c1 (this rank's primes, its data block's rows), pte and ok (its
     data block's rows) and pt (its own rows).  values, share_words and
     err_words are this rank's rows, sk_signed whole, all on the mesh's
-    device.  Every encode_mode is the one bit-exact encode."""
+    device.  Every encode_mode is the one bit-exact encode.  Compiled per
+    input signature on the mesh's device (``graphs.graphed``), the
+    all-gather and the ok reduce inside the graph."""
     check_encode_mode(encode_mode)
     n = parms.degree
     limbs, d, group, front = _layout(mesh, parms, data_axis, limb_axis)
-    enc = LimbscanEncryptor(parms, "parallel", device=mesh_device(mesh))
+    dev = mesh_device(mesh)
+    enc = LimbscanEncryptor(parms, "parallel", device=dev)
     moduli = enc.moduli[limbs]
 
     def run(values, sk_signed, share_words, err_words):
@@ -90,7 +94,7 @@ def make_limb_sharded_encryptor(mesh, parms: Parms,
                       {"c0": (limbs, rows), "c1": (limbs, rows),
                        "pte": (rows,), "ok": (rows,),
                        "pt": (block(front, pt.shape[0]),)})
-    return run
+    return graphed(run, dev)
 
 
 def make_asym_limb_sharded_encryptor(mesh, parms: Parms,
@@ -99,29 +103,35 @@ def make_asym_limb_sharded_encryptor(mesh, parms: Parms,
                                      limb_axis: str = "limb"):
     """Asymmetric batched encode + encrypt, the limb axis sharded: rank l
     of the limb group keeps only pk[l * L/n_limb : (l+1) * L/n_limb]
-    resident (an AsymEncryptor on its primes, its key set per call).  The per-prime step has no cross-prime PRNG dependency at all
+    resident (an AsymEncryptor on its primes, its key set per call).  The
+    per-prime step has no cross-prime PRNG dependency at all
     (ckks_asym.c:205-286), so no special counter layout is needed.
 
     Returns fn(values, pk0, pk1, seed_words) -> Shards with c0, c1 (this
     rank's primes, its data block's rows), pte and ok (its data block's
     rows) and pt (its own rows); values and seed_words are this rank's
-    rows, pk0 and pk1 the whole (L, n) key."""
+    rows, pk0 and pk1 the whole (L, n) key, int64, all on the mesh's
+    device.  Compiled per input signature there (``graphs.graphed``):
+    the key's quotients and the all-gather run inside the graph, pk among
+    its inputs (the encryptor's key buffers stay unused, so two
+    signatures share no key)."""
     check_encode_mode(encode_mode)
     n = parms.degree
     limbs, d, group, front = _layout(mesh, parms, data_axis, limb_axis)
+    dev = mesh_device(mesh)
     enc = AsymEncryptor(Parms(n, parms.moduli[limbs], parms.scale),
-                        device=mesh_device(mesh))
+                        device=dev)
 
     def run(values, pk0, pk1, seed_words):
-        enc.set_key(pk0[limbs], pk1[limbs])
+        key = enc.key(pk0[limbs], pk1[limbs])
         pt, pte, u, e1, ok = enc.prologue(values, seed_words)
         u, e1, pte, ok = _gather(group, u, e1, pte,
                                  ok[:, None].to(torch.int64))
-        c0, c1 = enc.combine(u, e1, pte)
+        c0, c1 = enc.combine(u, e1, pte, key=key)
         rows = block(d, pte.shape[0])
         return Shards({"c0": c0, "c1": c1, "pte": pte, "pt": pt,
                        "ok": ok[:, 0].bool()},
                       {"c0": (limbs, rows), "c1": (limbs, rows),
                        "pte": (rows,), "ok": (rows,),
                        "pt": (block(front, pt.shape[0]),)})
-    return run
+    return graphed(run, dev)

@@ -11,7 +11,11 @@ runs its own part of a batch (SPMD): a sharded function takes this
 rank's rows (``shard_batch``, ``multihost.shard_inputs``) and returns a
 ``Shards``, the rank's blocks of the global outputs with the global
 slices they occupy, which ``multihost.collect_to_host`` hands to the
-host.  The coefficient-sharded NTT is ``parallel/coeff_ntt.py``.
+host.  The coefficient-sharded NTT is ``parallel/coeff_ntt.py``.  Every
+sharded function is compiled per input signature on the rank's device
+(``graphs.graphed``, the JAX package's jit): on the card its NCCL
+collectives are captured inside the graph, and on the CPU (gloo) it runs
+as it is.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import Parms
+from ..graphs import graphed
 from .comm import backend_for
 
 
@@ -120,21 +125,24 @@ def sym_encrypt_sharded(mesh: DeviceMesh, parms: Parms):
     all primes of its rows.  For limb-parallel compute (each rank owns its
     primes end to end) use parallel.limbwise.make_limb_sharded_encryptor.
     Returns fn(values, sk_signed, share_words, err_words) -> Shards, c0/c1
-    bit-equal to the unsharded function's blocks.
+    bit-equal to the unsharded function's blocks, the inputs on the
+    mesh's device; compiled per input signature there (``graphs.py``),
+    as the JAX wrapper is jitted, through a BatchEncryptor whose tables
+    stay resident.
     """
-    from ..ckks.sym import sym_encrypt_batch
+    from ..ckks.sym import BatchEncryptor
 
     limbs = limb_block(mesh, parms)
     d, _ = axis_index(mesh, "data")
     dev = mesh_device(mesh)
+    enc = BatchEncryptor(parms, dev)
 
     def run(values, sk_signed, share_words, err_words):
-        out = sym_encrypt_batch(*(t.to(dev) for t in (
-            values, sk_signed, share_words, err_words)), parms)
+        out = enc(values, sk_signed, share_words, err_words)
         rows = block(d, values.shape[0])
         blocks = {"c0": out["c0"][limbs], "c1": out["c1"][limbs],
                   "pt": out["pt"], "pte": out["pte"], "ok": out["ok"]}
         index = {"c0": (limbs, rows), "c1": (limbs, rows), "pt": (rows,),
                  "pte": (rows,), "ok": (rows,)}
         return Shards(blocks, index)
-    return run
+    return graphed(run, dev)
