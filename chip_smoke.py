@@ -14,8 +14,10 @@ parallel and reverse-order forms (``ckks/limbwise.py``) and the per-prime
 per-prime streams (``ckks/stream.py``, each compiled as one graph)
 on the same inputs; the compiled factories (``graphs.py``: each captured
 as a CUDA graph per input signature and replayed), the scale-out ones
-with their NCCL collectives; and the op-mix calibration that gives every
-kernel its measured ceiling.  Phases, one line each:
+with their NCCL collectives; the compiled fused sym and asym factories
+at the JAX package's deep chains and batches up to 10240; and the op-mix
+calibration that gives every kernel its measured ceiling.  Phases, one
+line each:
 
 1. device: the card, its power limit, nvcc's version;
 2. build: the kernels from ``seal_embedded_tpu_torch/csrc/`` (sm_90a);
@@ -99,8 +101,30 @@ kernel its measured ceiling.  Phases, one line each:
    cluster launch inside a graph (n = 16384, L = 13, golden rows); the
    API's compiled functions replayed in phase 5b.
 
-Phases 7 and 8 run before phase 6 prints, so their runs are in phase 6's
-list; phases 4, 5 and 5b call the factories, so they capture graphs too.
+9. depth: the JAX package's own tracked sizes through the compiled fused
+   factories (``make_fused_encryptor``, ``make_fused_asym_encryptor``
+   with the pk from ``gen_pk_batch``), in order: sym n = 8192, L = 6 and
+   n = 16384, L = 13 at B = 1024, asym 8192/6 at B = 1024 and 16384/13
+   at B = 512 (``bench.py``'s deep rows), and the n = 4096, L = 3 batch
+   sweep at B = 1024, 2048, 4096, 8192 and 10240 (``bsweep``, and
+   ``BASELINE.json``'s 10k+); each batch with the golden rows at both
+   ends, bit-exact and ok for all, a first call that captures (its time
+   and the memory it leaves reserved), one eager call of the same module
+   equal bit for bit with the same launches, eight middle rows as a
+   batch of 8 (a second signature) equal to the large batch's rows, CUDA
+   events and host clock, device busy and idle share, the peak above the
+   inputs and the footprint, and memory_reserved before and after; every
+   signature's graph is kept, and the phase states what they hold of the
+   card.  At the deep shapes, on the batches' own tensors, KK's base
+   squeeze (13 x 1024 streams of 482 blocks) and its queue and CBD roles
+   at B = 10240, KN from pte at (13, 1024, 16384), KA at (13, 512,
+   16384) and KE at (1024, 16384) (2-CTA clusters) and (10240, 4096),
+   each against the batch's output and its plain version, timed through
+   its wrapper, alone and against its bound.
+
+Phases 7, 8 and 9 run before phase 6 prints, so their runs are in phase
+6's list; phases 4, 5 and 5b call the factories, so they capture graphs
+too.
 Imports no jax and nothing of the JAX package.  Any failure raises and
 exits non-zero; there is no CPU fallback.  The last line is one JSON
 object with "ok" and the device; the line before it lists the kernels.
@@ -123,7 +147,8 @@ from perf_stages import PORT_KERNELS, kernel_alone_ms, timeline, trace
 from seal_embedded_tpu_torch import adapter, api, graphs, sweep
 from seal_embedded_tpu_torch.ckks import stream
 from seal_embedded_tpu_torch.ckks.asym import (AsymEncryptor, gen_pk_batch,
-                                              make_asym_encryptor)
+                                              make_asym_encryptor,
+                                              make_fused_asym_encryptor)
 from seal_embedded_tpu_torch.ckks.fast import (SymEncryptor,
                                               make_fused_encryptor)
 from seal_embedded_tpu_torch.ckks.limbwise import (LimbscanEncryptor,
@@ -237,7 +262,9 @@ def u32(rng, shape, dev):
 
 
 def max_abs_err(got, want) -> int:
-    return int((got.cpu() - want.cpu()).abs().max())
+    """On got's device: a deep batch's copy to the host would take
+    seconds."""
+    return int((got - want.to(got.device)).abs().max())
 
 
 def require_equal(name, got, want):
@@ -313,26 +340,31 @@ def u32_bytes(*tensors) -> int:
     return 4 * sum(t.numel() for t in tensors)
 
 
+def kernel_row(name, source, replaces, counter, err, fn, ms, plain_ms, shape,
+               work, moved, f64_ops=0) -> dict:
+    """One kernel row: fn, kept so that it binds its inputs, timed through
+    the wrapper (ms) and, in set_kernel_alone_ms, alone; plain_ms its plain
+    version's time.  work: ("keccak", permutations) or ("ntt",
+    butterflies), from which bound_line reckons the integer instructions
+    and phase 3b sol_frac_calibrated; moved: the bytes the function must
+    read and write, each input once and each output once; f64_ops: the f64
+    operations it must do."""
+    ops = 0 if work is None else work[1] * INT_OPS_PER_UNIT[work[0]]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "counter": counter, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "fn": fn, "shape": shape,
+            "work": work, "ops": ops, "f64_ops": f64_ops, "bytes": moved}
+
+
 def phase_kernels(dev):
     rng = np.random.default_rng(1)
     rows = []
 
-    def row(name, source, replaces, counter, err, fn, plain_fn, shape, work,
-            moved, f64_ops=0):
-        """One kernel row: fn through the wrapper and (in phase 3b) alone,
-        plain_fn the plain version; fn is kept, so it binds its inputs.
-        work: ("keccak", permutations) or ("ntt", butterflies), what
-        phase 3b reckons the row's integer instructions and
-        sol_frac_calibrated from; moved: the bytes the function must read
-        and write, each input once and each output once; f64_ops: the f64
-        operations it must do."""
-        ms, pms = timed_pair(fn, plain_fn)
-        ops = 0 if work is None else work[1] * INT_OPS_PER_UNIT[work[0]]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "counter": counter,
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                     "fn": fn, "shape": shape, "work": work, "ops": ops,
-                     "f64_ops": f64_ops, "bytes": moved})
+    def row(name, source, replaces, counter, err, fn, plain_fn, *args,
+            **kwargs):
+        """A kernel_row, fn and its plain version plain_fn timed."""
+        rows.append(kernel_row(name, source, replaces, counter, err, fn,
+                               *timed_pair(fn, plain_fn), *args, **kwargs))
 
     # KK: the uniform base draw (121 blocks, one warp per stream), the
     # queue (nwords=1, 160 per stream: the chain-aware queue_cap_for) and
@@ -574,8 +606,6 @@ def phase_calibrate(dev, smi, sm_hz, rows):
     ceiling run)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles = 2 * sms
-    int_rate = INT_OPS_PER_SM_CLOCK * sm_hz
-    f64_rate = F64_OPS_PER_SM_CLOCK * sm_hz
     kc_src = "seal_embedded_tpu_torch/csrc/calibrate.cu"
     kc_rows = []
     for mix in cal.MIXES:
@@ -635,24 +665,7 @@ def phase_calibrate(dev, smi, sm_hz, rows):
     ceiling = {mix: v[0] for mix, v in best.items()}
     for r in rows + kc_rows:
         kind = r["work"][0] if r["work"] else r.get("kind")
-        bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        bound_ops = max(r["ops"] / int_rate, r["f64_ops"] / f64_rate) * 1e3
-        r["bound_ms"] = max(bound_bytes, bound_ops)
-        r["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
-        roofline = r["bound_ms"] / r["kernel_ms"]
-        line = (f"[3b calibrate] {r['name']} ({r['shape']}): bound "
-                f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
-                f"({r['bytes'] / 1e6:.1f} MB at 3.35 TB/s: "
-                f"{bound_bytes:.4f} ms; {r['ops'] / 1e6:.1f} M integer "
-                f"instructions: {r['ops'] / int_rate * 1e3:.4f} ms; "
-                f"{r['f64_ops'] / 1e6:.1f} M f64 operations: "
-                f"{r['f64_ops'] / f64_rate * 1e3:.4f} ms); roofline share "
-                f"{roofline:.4f} alone, "
-                f"{r['bound_ms'] / r['ms']:.4f} through the wrapper")
-        if roofline > 1:
-            raise AssertionError(f"{r['name']}: {r['kernel_ms']:.4f} ms "
-                                 f"alone beats its bound "
-                                 f"{r['bound_ms']:.4f} ms")
+        line = f"[3b calibrate] {bound_line(r, sm_hz)}"
         if r["work"]:
             units = r["work"][1]
             share = (k_calib.keccak_share if kind == "keccak"
@@ -664,6 +677,32 @@ def phase_calibrate(dev, smi, sm_hz, rows):
                      f"kernel alone")
         print(line)
     return kc_rows, counts
+
+
+def bound_line(r, sm_hz) -> str:
+    """Set kernel row r's bound_ms, the largest of its bytes at the HBM
+    rate, its integer instructions at the SMs' integer rate and its f64
+    operations at their f64 rate (sm_hz: the card's SMs times their
+    maximum clock), and its bound_by; raise if its time alone beats the
+    bound.  Returns the text that states them."""
+    int_rate = INT_OPS_PER_SM_CLOCK * sm_hz
+    f64_rate = F64_OPS_PER_SM_CLOCK * sm_hz
+    bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    bound_ops = max(r["ops"] / int_rate, r["f64_ops"] / f64_rate) * 1e3
+    r["bound_ms"] = max(bound_bytes, bound_ops)
+    r["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
+    roofline = r["bound_ms"] / r["kernel_ms"]
+    if roofline > 1:
+        raise AssertionError(f"{r['name']}: {r['kernel_ms']:.4f} ms alone "
+                             f"beats its bound {r['bound_ms']:.4f} ms")
+    return (f"{r['name']} ({r['shape']}): bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({r['bytes'] / 1e6:.1f} MB at 3.35 TB/s: "
+            f"{bound_bytes:.4f} ms; {r['ops'] / 1e6:.1f} M integer "
+            f"instructions: {r['ops'] / int_rate * 1e3:.4f} ms; "
+            f"{r['f64_ops'] / 1e6:.1f} M f64 operations: "
+            f"{r['f64_ops'] / f64_rate * 1e3:.4f} ms); roofline share "
+            f"{roofline:.4f} alone, {r['bound_ms'] / r['ms']:.4f} through "
+            f"the wrapper")
 
 
 def load_golden(kind, n, nprimes):
@@ -686,10 +725,14 @@ def load_golden(kind, n, nprimes):
     return gold
 
 
-def check_golden_rows(out, gold, name, keys=("c0", "c1", "pt", "pte")):
+def check_golden_rows(out, gold, name, keys=("c0", "c1", "pt", "pte"),
+                      at=0):
+    """Rows at..at+G-1 of out equal the G golden rows; ok for the whole
+    batch."""
     G = gold["v"].shape[0]
+    rows = slice(at, at + G)
     for key in keys:
-        got = (out[key][:, :G] if key in ("c0", "c1") else out[key][:G])
+        got = (out[key][:, rows] if key in ("c0", "c1") else out[key][rows])
         if not np.array_equal(got.cpu().numpy(), gold[key]):
             raise AssertionError(f"{name}: {key} differs from the golden file")
     if not bool(out["ok"].all()):
@@ -1938,6 +1981,368 @@ def paired_host_ms(fn, other, pairs=TIME_ITERS):
     return tuple(statistics.median(t) for t in times)
 
 
+# Phase 9: the JAX package's own tracked sizes.  bench.py:264-267 runs
+# sym n=8192/L=6 and n=16384/L=13 at B=1024, asym 8192/6 at B=1024 and
+# asym 16384/13 at B=512, golden rows inside the timed batch; bench.py:209
+# (bsweep) the n=4096/L=3 headline at B = 1024 ... 8192; B = 10240 is
+# BASELINE.json's "10k+" (its config 4).  Each row: (tag, kind, n, L, its
+# batches, the kernels held against their plain versions at its last
+# batch's shapes).
+DEPTH_ROWS = (
+    ("sym-8192-6", "sym", 8192, 6, (1024,), ()),
+    ("sym-16384-13", "sym", 16384, 13, (1024,),
+     ("KK base", "KN from pte", "KE")),
+    ("asym-8192-6", "asym", 8192, 6, (1024,), ()),
+    ("asym-16384-13", "asym", 16384, 13, (512,), ("KA",)),
+    ("bsweep", "sym", 4096, 3, (1024, 2048, 4096, 8192, 10240),
+     ("KK queue", "KK cbd", "KE")))
+DEPTH_SEED = 9
+DEPTH_INDEP_B = 8     # the row-independence batch, a second signature
+DEPTH_KE_ROWS = 8     # KE's rows held against the plain encode on the CPU
+DEPTH_ITERS_16384 = 5     # timed batches at n = 16384, as bench.py
+
+
+def depth_inputs(gold, batch, seed=DEPTH_SEED):
+    """`batch` messages and seeds made from numpy seed `seed`, with the G
+    golden messages and seeds in rows 0..G-1 and again in rows
+    batch-G..batch-1: (values float32 (batch, n/2), share, err uint32
+    (batch, 16)).  The asym path takes err as its private seeds (tag 3,
+    as the golden files do)."""
+    G, half = gold["v"].shape
+    if batch < 2 * G:
+        raise ValueError(f"depth_inputs: batch {batch} cannot hold the {G} "
+                         f"golden rows at both ends")
+    rng = np.random.default_rng(seed)
+    values = rng.uniform(-1, 1, (batch, half)).astype(np.float32)
+    share, err = (rng.integers(0, 2 ** 32, (batch, 16), dtype=np.int64)
+                  .astype(np.uint32) for _ in range(2))
+    for rows in (slice(0, G), slice(batch - G, batch)):
+        values[rows] = gold["v"]
+        share[rows], err[rows] = golden_seeds(G)
+    return values, share, err
+
+
+def check_golden_ends(out, gold, name):
+    """Both golden blocks of a depth_inputs batch bit-exact; ok for all."""
+    G = gold["v"].shape[0]
+    batch = out["pte"].shape[0]
+    for at in (0, batch - G):
+        check_golden_rows(out, gold, f"{name} rows {at}..{at + G - 1}",
+                          at=at)
+
+
+def middle_rows(batch, G, seed):
+    """DEPTH_INDEP_B seeded rows of a batch, sorted, none golden."""
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(np.arange(G, batch - G), DEPTH_INDEP_B,
+                              replace=False))
+
+
+def check_rows_of(small, out, rows, name):
+    """A batch of the rows `rows` equals those rows of the large batch."""
+    for key, want in out.items():
+        want = want[:, rows] if key in ("c0", "c1") else want[rows]
+        if not torch.equal(small[key], want):
+            raise AssertionError(f"{name}: {key} of rows {rows.tolist()} "
+                                 f"run as a batch of {len(rows)} differs "
+                                 f"from the large batch's")
+
+
+def depth_case(kind, n, nprimes, batch, dev):
+    """(compiled factory function, the encryptor behind it, its args on
+    `dev`, the positions of the per-message args, the kernels its path
+    must launch, gold) of one depth batch; asym's pk comes from
+    gen_pk_batch on the golden key material and is checked against the
+    golden file."""
+    parms = default_parms(n, nprimes)
+    gold = load_golden(kind, n, nprimes)
+    values, share, err = depth_inputs(gold, batch)
+    if kind == "sym":
+        fn = make_fused_encryptor(parms, device=dev)
+        return (fn, fn.fn,
+                state_to_device(values, gold["sk"], share, err, dev),
+                (0, 2, 3), SYM_PATH, gold)
+    pk = golden_pk(gold, parms, dev)
+    check_pk(pk, gold, f"asym n={n} L={nprimes}")
+    v, s = asym_state_to_device(values, err, dev)
+    fn = make_fused_asym_encryptor(parms, device=dev)
+    return fn, fn.encryptor, (v, *pk, s), (0, 3), ASYM_PATH, gold
+
+
+def timed_plain(fn):
+    """(fn()'s result, its CUDA-event ms): one call, the plain versions at
+    the deep shapes being too slow for more."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def depth_kernels(names, module, out, args, iters, dev):
+    """The kernels `names` at a depth batch's shapes, on its own tensors:
+    the batch's outputs `out`, its inputs `args`, and `module`, the
+    encryptor behind the compiled function.  Each is held against the
+    batch's output where it computes a part of it, and bit for bit against
+    its plain version: KK, KN and KA on every row, on the card; KE on
+    DEPTH_KE_ROWS rows, the first and the last among them, against the
+    plain encode on CPU copies.  Each is timed through its wrapper
+    (`iters` calls) and its plain version (one call).  Returns the kernel
+    rows, their fn still bound for the time alone."""
+    rows = []
+    kk = "seal_embedded_tpu_torch/csrc/keccak.cu"
+    kn = "seal_embedded_tpu_torch/csrc/ntt.cu"
+    L, batch, n = out["c0"].shape
+
+    def row(name, source, replaces, counter, err, fn, plain_ms, shape,
+            *args, **kwargs):
+        """A kernel_row, fn timed through its wrapper."""
+        ms = cuda_time_ms(fn, iters)
+        rows.append(kernel_row(name, source, replaces, counter, err, fn, ms,
+                               plain_ms, shape, *args, **kwargs))
+        print(f"[9 kernels] {name} ({shape}): bit-equal to its plain "
+              f"version; {ms:.4f} ms through the wrapper (median of "
+              f"{iters}), plain {plain_ms:.4f} ms (one call)")
+
+    def kk_check(name, fn, plain):
+        got = fn()
+        want, pms = timed_plain(plain)
+        return got, require_equal(name, got, want.reshape(got.shape)), pms
+
+    for name in names:
+        if name == "KK base":
+            # The uniform base draw of every limb in one launch: the share
+            # seeds once per limb, counters seeded, three at the carries.
+            rng = np.random.default_rng(DEPTH_SEED)
+            seeds = args[2].repeat(L, 1).contiguous()
+            ctr = u32(rng, (L * batch, 2), dev)
+            ctr[0] = torch.tensor([2 ** 32 - 1, 0])
+            ctr[1] = torch.tensor([2 ** 32 - 1, 2 ** 32 - 1])
+            ctr[-1] = torch.tensor([2 ** 32 - 170, 7])
+            nb = -(-4 * n // 136)
+            fn = lambda: k_keccak.keccak_squeeze(seeds, ctr, nb)
+            got, err, pms = kk_check(name, fn, lambda: kc.shake256_words(
+                seeds, ctr, nb))
+            row(f"keccak_squeeze base n={n}", kk, K1, "keccak", err, fn, pms,
+                f"{L} x {batch} streams x {nb} blocks",
+                ("keccak", L * batch * nb), u32_bytes(seeds, ctr, got))
+        elif name in ("KK queue", "KK cbd"):
+            # The first limb's queue draw and the CBD error, as the path
+            # calls them: the share and err seeds at counter 0.
+            ctr = sp.counter_zero((batch,), dev)
+            if name == "KK queue":
+                cap = module.queue_cap
+                offs = 1 + torch.arange(cap, device=dev)
+                fn = lambda: k_keccak.keccak_squeeze(args[2], ctr, 1, 1, cap,
+                                                     1)
+                got, err, pms = kk_check(name, fn, lambda: kc.shake256_words(
+                    args[2], kc.counter_offsets(ctr, offs), 1, 1))
+                row(f"keccak_squeeze queue broadcast B={batch}", kk, K2,
+                    "keccak", err, fn, pms,
+                    f"{batch} seeds x {cap} streams from counter + 1, "
+                    f"nwords=1", ("keccak", batch * cap),
+                    u32_bytes(args[2], ctr, got))
+            else:
+                fn = lambda: k_keccak.cbd_values(args[3], ctr, n)
+                got, err, pms = kk_check(name, fn, lambda: kc.cbd_values(
+                    args[3], ctr, n))
+                row(f"cbd_values B={batch}", kk, K2, "keccak_cbd", err, fn,
+                    pms, f"{batch} seeds x {n // 16} fills -> (B, n) = "
+                    f"({batch}, {n}) values", ("keccak", batch * n // 16),
+                    u32_bytes(args[3], ctr) + got.numel())
+        elif name == "KN from pte":
+            ntt_s = module.ntt_secret(args[1])
+            kargs = (out["pte"], out["c1"], ntt_s,
+                     ma.shoup_quotient(ntt_s, module.q[:, None]),
+                     module.ntt_op, module.ntt_quot, module.q, module.r0,
+                     module.r1)
+            fn = lambda: k_ntt.ntt_sym_from_pte(*kargs)
+            got = fn()
+            if not torch.equal(got, out["c0"]):
+                raise AssertionError(f"{name}: differs from the batch's c0")
+            want, pms = timed_plain(
+                lambda: ntt_ops.ntt_sym_from_pte_plain(*kargs))
+            err = require_equal(name, got, want)
+            del want
+            row(f"ntt_sym_from_pte n={n} L={L}", kn, K4, "ntt_pte", err, fn,
+                pms, f"pte (B, n) = ({batch}, {n}) -> (L, B, n) = ({L}, "
+                f"{batch}, {n}), the batch's pte, c1 and ntt(s)",
+                ("ntt", k_calib.ntt_butterflies(L, batch, n)),
+                nbytes(out["pte"]) + u32_bytes(*kargs[1:], got))
+        elif name == "KA":
+            pt, pte, u, e1, ok = module.prologue(args[0], args[3])
+            if not (torch.equal(pte, out["pte"])
+                    and torch.equal(pt, out["pt"])):
+                raise AssertionError(f"{name}: the prologue's pt or pte "
+                                     f"differs from the batch's")
+            kargs = (u, e1, pte, module.ntt_op, module.ntt_quot, module.q,
+                     module.r0, module.r1, *module.key(args[1], args[2]))
+            fn = lambda: k_ntt.ntt_asym_from_signed(*kargs)
+            got = fn()
+            if not (torch.equal(got[0], out["c0"])
+                    and torch.equal(got[1], out["c1"])):
+                raise AssertionError(f"{name}: differs from the batch's c0, "
+                                     f"c1")
+            want, pms = timed_plain(
+                lambda: ntt_ops.ntt_asym_from_signed_plain(*kargs))
+            err = max(require_equal(f"{name} {c}", g, w)
+                      for c, g, w in zip(("c0", "c1"), got, want))
+            del want
+            row(f"ntt_asym_from_signed n={n} L={L}", kn, K6, "ntt_asym", err,
+                fn, pms, f"u, e1, pte (B, n) = ({batch}, {n}) -> (L, B, n) "
+                f"= ({L}, {batch}, {n}), the batch's prologue, golden pk",
+                ("ntt", k_calib.ntt_butterflies(L, batch, n, 3)),
+                u.numel() + e1.numel() + nbytes(pte)
+                + u32_bytes(*kargs[3:], *got))
+        elif name == "KE":
+            v = args[0]
+            tabs = (module.imap, module.tw_re, module.tw_im)
+            fn = lambda: k_encode.encode_f64(v, *tabs, module.scale_n)
+            coeff, ok = fn()
+            if not torch.equal(coeff, out["pt"]):
+                raise AssertionError(f"{name}: differs from the batch's pt")
+            rng = np.random.default_rng(DEPTH_SEED)
+            sample = np.sort(np.concatenate([[0, batch - 1], rng.choice(
+                np.arange(1, batch - 1), DEPTH_KE_ROWS - 2, replace=False)]))
+            want_c, want_ok = enc.encode_tables(
+                v.cpu()[sample], *(t.cpu() for t in tabs), module.scale_n)
+            got_c = coeff[torch.as_tensor(sample, device=dev)].cpu()
+            got_ok = ok[torch.as_tensor(sample, device=dev)].cpu()
+            if not (torch.equal(got_ok, want_ok) and bool(want_ok.all())):
+                raise AssertionError(f"{name}: ok flags differ from the "
+                                     f"plain version")
+            err = require_equal(f"{name} n={n} B={batch}", got_c, want_c)
+            _, pms = timed_plain(lambda: enc.encode_tables(
+                v, *tabs, module.scale_n))
+            logn = n.bit_length() - 1
+            row(f"encode_f64 n={n} B={batch}", "seal_embedded_tpu_torch/"
+                "csrc/encode.cu", K5, "encode", err, fn, pms,
+                f"(B, vlen) = ({batch}, {n // 2}), n = {n}, "
+                f"{1 if n < 8192 else 2} CTA a row; rows "
+                f"{sample.tolist()} against the plain encode on the CPU",
+                None, nbytes(v, *tabs, coeff, ok),
+                batch * (F64_OPS_PER_BUTTERFLY * logn * n // 2
+                         + F64_OPS_PER_COEFF * n))
+        else:
+            raise ValueError(f"depth_kernels: no check named {name}")
+    return rows
+
+
+def depth_batch(tag, kind, n, nprimes, batch, names, dev, smi):
+    """One depth batch through its compiled factory: the first call (two
+    warm-ups and the capture) timed, with the memory it leaves reserved; a
+    replay, both golden blocks bit-exact and ok for all; one eager call of
+    the same module, equal bit for bit with the same launches; eight
+    middle rows as a batch of DEPTH_INDEP_B (a second signature), equal to
+    the large batch's; the kernels `names` at its shapes (depth_kernels);
+    CUDA-event and host-clock ms, device busy and idle share.  Returns
+    (the launch counts of one replay and the kernels the path must
+    launch, the kernel rows)."""
+    fn, module, args, per_row, needed, gold = depth_case(kind, n, nprimes,
+                                                         batch, dev)
+    g = compiled_of(fn)
+    G = gold["v"].shape[0]
+    name = f"depth {tag} B={batch}"
+    iters = DEPTH_ITERS_16384 if n >= 16384 else TIME_ITERS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+
+    def first():
+        start = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3
+    first_ms, resident = pool_resident(first)
+    out, counts, peak = peak_run(lambda: fn(*args))
+    check_golden_ends(out, gold, f"{name} compiled")
+    eager, eager_counts, eager_peak = peak_run(lambda: g.fn(*args))
+    require_outputs_equal(f"{name} compiled vs eager", out, eager)
+    del eager
+    if counts != eager_counts or any(counts[k] < 1 for k in needed):
+        raise AssertionError(f"{name}: launches per replay {counts}, eager "
+                             f"per call {eager_counts}")
+    mid = torch.as_tensor(middle_rows(batch, G, DEPTH_SEED + batch),
+                          device=dev)
+    small = tuple(a.index_select(0, mid) if i in per_row else a
+                  for i, a in enumerate(args))
+    check_rows_of(fn(*small), out, mid, name)
+    sizes = {e.inputs[0].shape[0] for e in g.entries.values()}
+    if not {batch, DEPTH_INDEP_B} <= sizes:
+        raise AssertionError(f"{name}: captured batch sizes {sorted(sizes)}"
+                             f", want {batch} and {DEPTH_INDEP_B} among them")
+    krows = depth_kernels(names, module, out, args, iters, dev)
+    del out
+    ms = cuda_time_ms(lambda: fn(*args), iters)
+    host = host_time_ms(lambda: (fn(*args), torch.cuda.synchronize()),
+                        iters)[0]
+    busy = timeline(lambda: fn(*args))["busy_ms"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    mib = 2 ** 20
+    print(f"[9 depth] {tag} {kind} n={n} L={nprimes} B={batch}, compiled "
+          f"({fn.__class__.__name__} of the factory): rows 0..{G - 1} and "
+          f"{batch - G}..{batch - 1} golden_{kind}_{n}_{nprimes}.npz "
+          f"bit-exact (c0, c1, pt, pte), ok for all {batch}; torch.equal to "
+          f"one eager call of the same module, launches per replay "
+          f"{sum(counts.values())} = eager's; rows {mid.tolist()} as a "
+          f"batch of {DEPTH_INDEP_B} (a second signature) equal to the "
+          f"large batch's; {ms:.3f} ms/batch CUDA events (median of "
+          f"{iters}), {batch / ms * 1e3:.1f} enc/s, host clock {host:.3f} "
+          f"ms, device busy {busy:.3f} ms, idle share {1 - busy / ms:.1%}; "
+          f"peak above the inputs {peak / mib:.1f} MiB (eager "
+          f"{eager_peak / mib:.1f}); footprint {(resident + peak) / mib:.1f}"
+          f" MiB ({resident / mib:.1f} left reserved by the first call + "
+          f"{peak / mib:.1f} a replay's peak); first call {first_ms:.1f} ms "
+          f"(two warm-ups and the capture); memory_reserved "
+          f"{before / mib:.1f} -> {after / mib:.1f} MiB; {smi}")
+    return (counts, needed), krows
+
+
+def phase_depth(dev, smi, sm_hz):
+    """Phase 9: every DEPTH_ROWS batch through its compiled factory
+    (depth_batch), in order, every signature's graph kept; then the
+    kernels at the deep shapes alone with their bounds, and the memory the
+    rows keep reserved against the card's.  Returns (the launch counts of
+    one replay of each batch with the kernels its path must launch, the
+    kernel rows)."""
+    t0 = time.perf_counter()
+    # Earlier phases captured graphs of the n = 4096 and 16384 sym
+    # factories: dropped, so that every first call here captures.
+    for _, kind, n, nprimes, _, _ in DEPTH_ROWS:
+        make = (make_fused_encryptor if kind == "sym"
+                else make_fused_asym_encryptor)
+        compiled_of(make(default_parms(n, nprimes),
+                         device=dev)).entries.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_reserved()
+    runs, rows = {}, []
+    for tag, kind, n, nprimes, batches, names in DEPTH_ROWS:
+        for batch in batches:
+            runs[f"depth {tag} B={batch}"], krows = depth_batch(
+                tag, kind, n, nprimes, batch,
+                names if batch == batches[-1] else (), dev, smi)
+            rows += krows
+    kept = torch.cuda.memory_reserved()
+    set_kernel_alone_ms(rows)
+    for r in rows:
+        print(f"[9 kernels] {bound_line(r, sm_hz)}; "
+              f"{r['kernel_ms']:.4f} ms alone; {smi}")
+    mib = 2 ** 20
+    card = torch.cuda.get_device_properties(dev).total_memory
+    print(f"[9 depth] memory_reserved {start / mib:.1f} MiB before the rows,"
+          f" {kept / mib:.1f} MiB after them, every signature's graph "
+          f"resident ({(kept - start) / mib:.1f} MiB for the "
+          f"{len(runs)} batches and their B={DEPTH_INDEP_B} signatures), "
+          f"of the card's {card / mib:.1f} MiB; phase 9 took "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return runs, rows
+
+
 def main():
     smi, sm_hz = phase_device()
     dev = torch.device("cuda", 0)
@@ -1962,6 +2367,9 @@ def main():
                               "sweep": sym_path + ("ntt_asym",)}.get(
             tag, asym_path if "asym" in tag else sym_path))
     runs.update(phase_compiled(dev, smi))
+    depth_runs, depth_rows = phase_depth(dev, smi, sm_hz)
+    runs.update(depth_runs)
+    rows += depth_rows
     runs["calibration"] = (calib_counts, ("calib",))
     for path, (counts, needed) in runs.items():
         missing = [k for k in needed if counts[k] < 1]
