@@ -117,12 +117,37 @@ line each:
    signature's graph is kept, and the phase states what they hold of the
    card.  At the deep shapes, on the batches' own tensors, KK's base
    squeeze (13 x 1024 streams of 482 blocks) and its queue and CBD roles
-   at B = 10240, KN from pte at (13, 1024, 16384), KA at (13, 512,
-   16384) and KE at (1024, 16384) (2-CTA clusters) and (10240, 4096),
-   each against the batch's output and its plain version, timed through
-   its wrapper, alone and against its bound.
+   at B = 10240, KN's ntt(s) at (13, 1, 16384), KN from pte at (13,
+   1024, 16384), KA at (13, 512, 16384) and KE at (1024, 16384) (2-CTA
+   clusters) and (10240, 4096), each against the batch's output and its
+   plain version, timed through its wrapper, alone and against its bound.
 
-Phases 7, 8 and 9 run before phase 6 prints, so their runs are in phase
+10. custom chain: the chain (536903681, 1053818881, 1054015489), scale
+   2^25, which Parms accepts and whose first prime rejects 12.5% of the
+   uniform sampler's words (queue caps 1,472 at n = 8192 and 2,768 at
+   16384, the C loop's redraws: beyond the 160 a 4096-wide chunk the
+   default chains fit in),
+   at n = 8192 and 16384: the compiled fused sym factory at B = 1024 and
+   the compiled fused asym one (pk from gen_pk_batch) at B = 1024 and
+   512, ok for every row, rows 0, 1 and B-1 and the pk bit-exact against
+   the C loop (golden/ckks.py sym_encrypt, gen_pk, asym_encrypt); the
+   limb-scan reference layout and the compiled sym stream (every limb)
+   equal to the fused batch; the world-size-1 limb-sharded sym on a B =
+   8 slice equal to the single-device parallel layout and decrypted; KK's
+   queue at per_seed 1,472 and 2,768, KN from pte at (3, 1024, n) and KA
+   at (3, 1024, 8192) and (3, 512, 16384) against their plain versions
+   on the batches' tensors, timed alone against their bounds; each batch
+   timed beside the default chain's at the same (n, L = 3) (CUDA events
+   in alternated pairs, enc/s, busy, idle share, footprint; the default
+   sym batch's golden rows at both ends); the rank-select and KK's queue
+   of one limb alone on both chains;
+
+11. entry: ``seal_embedded_tpu_torch.entry.entry()`` (the compiled
+   ``sym_encrypt_batch`` at n = 4096, L = 3, B = 4) on the card, its
+   first call timed, two replays each equal to the same fn on the CPU
+   path, rows 0..3 bit-exact against golden/ckks.py, ms a call.
+
+Phases 7 to 11 run before phase 6 prints, so their runs are in phase
 6's list; phases 4, 5 and 5b call the factories, so they capture graphs
 too.
 Imports no jax and nothing of the JAX package.  Any failure raises and
@@ -163,6 +188,8 @@ from seal_embedded_tpu_torch.config import Parms, default_parms
 from seal_embedded_tpu_torch.convert import (asym_state_to_device,
                                              pk_to_device, state_to_device,
                                              unpack_sk)
+from seal_embedded_tpu_torch.entry import entry as port_entry
+from seal_embedded_tpu_torch.golden import ckks as gckks
 from seal_embedded_tpu_torch.io import network, serialize
 from seal_embedded_tpu_torch.ops import calibrate as cal
 from seal_embedded_tpu_torch.ops import encode as enc
@@ -1991,7 +2018,7 @@ def paired_host_ms(fn, other, pairs=TIME_ITERS):
 DEPTH_ROWS = (
     ("sym-8192-6", "sym", 8192, 6, (1024,), ()),
     ("sym-16384-13", "sym", 16384, 13, (1024,),
-     ("KK base", "KN from pte", "KE")),
+     ("KK base", "KN ntt(s)", "KN from pte", "KE")),
     ("asym-8192-6", "asym", 8192, 6, (1024,), ()),
     ("asym-16384-13", "asym", 16384, 13, (512,), ("KA",)),
     ("bsweep", "sym", 4096, 3, (1024, 2048, 4096, 8192, 10240),
@@ -2081,7 +2108,7 @@ def timed_plain(fn):
     return out, start.elapsed_time(end)
 
 
-def depth_kernels(names, module, out, args, iters, dev):
+def depth_kernels(names, module, out, args, iters, dev, phase="9"):
     """The kernels `names` at a depth batch's shapes, on its own tensors:
     the batch's outputs `out`, its inputs `args`, and `module`, the
     encryptor behind the compiled function.  Each is held against the
@@ -2090,7 +2117,8 @@ def depth_kernels(names, module, out, args, iters, dev):
     DEPTH_KE_ROWS rows, the first and the last among them, against the
     plain encode on CPU copies.  Each is timed through its wrapper
     (`iters` calls) and its plain version (one call).  Returns the kernel
-    rows, their fn still bound for the time alone."""
+    rows, their fn still bound for the time alone; `phase` tags the
+    lines it prints."""
     rows = []
     kk = "seal_embedded_tpu_torch/csrc/keccak.cu"
     kn = "seal_embedded_tpu_torch/csrc/ntt.cu"
@@ -2102,7 +2130,7 @@ def depth_kernels(names, module, out, args, iters, dev):
         ms = cuda_time_ms(fn, iters)
         rows.append(kernel_row(name, source, replaces, counter, err, fn, ms,
                                plain_ms, shape, *args, **kwargs))
-        print(f"[9 kernels] {name} ({shape}): bit-equal to its plain "
+        print(f"[{phase} kernels] {name} ({shape}): bit-equal to its plain "
               f"version; {ms:.4f} ms through the wrapper (median of "
               f"{iters}), plain {plain_ms:.4f} ms (one call)")
 
@@ -2152,6 +2180,20 @@ def depth_kernels(names, module, out, args, iters, dev):
                     pms, f"{batch} seeds x {n // 16} fills -> (B, n) = "
                     f"({batch}, {n}) values", ("keccak", batch * n // 16),
                     u32_bytes(args[3], ctr) + got.numel())
+        elif name == "KN ntt(s)":
+            # ntt(s) of every limb, once a sym batch: (L, 1, n).
+            sk = args[1].to(torch.int64).reshape(1, 1, -1)
+            s_args = (torch.where(sk < 0, module.q[:, None, None] - 1,
+                                  sk).contiguous(),
+                      module.ntt_op, module.ntt_quot, module.q)
+            fn = lambda s_args=s_args: k_ntt.ntt_fwd(*s_args)
+            got = fn()
+            want, pms = timed_plain(lambda: ntt_ops.ntt_limbs(*s_args))
+            err = require_equal(name, got, want)
+            row(f"ntt_fwd ntt(s) n={n} L={L}", kn, K3, "ntt", err, fn, pms,
+                f"(L, B, n) = ({L}, 1, {n}), the batch's secret key mod q",
+                ("ntt", k_calib.ntt_butterflies(L, 1, n)),
+                u32_bytes(*s_args, got))
         elif name == "KN from pte":
             ntt_s = module.ntt_secret(args[1])
             kargs = (out["pte"], out["c1"], ntt_s,
@@ -2192,7 +2234,7 @@ def depth_kernels(names, module, out, args, iters, dev):
             del want
             row(f"ntt_asym_from_signed n={n} L={L}", kn, K6, "ntt_asym", err,
                 fn, pms, f"u, e1, pte (B, n) = ({batch}, {n}) -> (L, B, n) "
-                f"= ({L}, {batch}, {n}), the batch's prologue, golden pk",
+                f"= ({L}, {batch}, {n}), the batch's prologue and pk",
                 ("ntt", k_calib.ntt_butterflies(L, batch, n, 3)),
                 u.numel() + e1.numel() + nbytes(pte)
                 + u32_bytes(*kargs[3:], *got))
@@ -2230,6 +2272,21 @@ def depth_kernels(names, module, out, args, iters, dev):
     return rows
 
 
+def first_and_replay(fn, args):
+    """A compiled fn's first call on args (two warm-ups and the capture)
+    timed, with the memory it leaves reserved, then a replay: (output,
+    launch counts, first-call ms, resident bytes, replay peak above the
+    inputs)."""
+    def first():
+        start = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3
+    first_ms, resident = pool_resident(first)
+    out, counts, peak = peak_run(lambda: fn(*args))
+    return out, counts, first_ms, resident, peak
+
+
 def depth_batch(tag, kind, n, nprimes, batch, names, dev, smi):
     """One depth batch through its compiled factory: the first call (two
     warm-ups and the capture) timed, with the memory it leaves reserved; a
@@ -2250,13 +2307,7 @@ def depth_batch(tag, kind, n, nprimes, batch, names, dev, smi):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_reserved()
 
-    def first():
-        start = time.perf_counter()
-        fn(*args)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - start) * 1e3
-    first_ms, resident = pool_resident(first)
-    out, counts, peak = peak_run(lambda: fn(*args))
+    out, counts, first_ms, resident, peak = first_and_replay(fn, args)
     check_golden_ends(out, gold, f"{name} compiled")
     eager, eager_counts, eager_peak = peak_run(lambda: g.fn(*args))
     require_outputs_equal(f"{name} compiled vs eager", out, eager)
@@ -2343,6 +2394,340 @@ def phase_depth(dev, smi, sm_hz):
     return runs, rows
 
 
+# Phase 10: a prime chain that Parms accepts and no default chain holds.
+# q = 536903681 = 2^29 + 2^15 + 1 (= 1 mod 32768) rejects 12.5% of the
+# uniform sampler's words, so its queue cap (ops/sampling.py
+# queue_cap_for: 1,472 at n = 8192, 2,768 at 16384) exceeds the 160
+# positions a 4096-wide chunk keeps on the default chains: the sampler's
+# wide-cap rules (queue_cap_for, _chunk_k) and KK's queue at those widths,
+# KN and KA on a prime near 2^29.  Each row: (n, the sym batch, the asym
+# batch, the kernels held against their plain versions at the sym batch's
+# shapes, at the asym batch's).
+CUSTOM_CHAIN = (536903681, 1053818881, 1054015489)
+CUSTOM_SCALE = 2.0 ** 25
+CUSTOM_ROWS = ((8192, 1024, 1024, ("KK queue", "KN from pte"), ("KA",)),
+               (16384, 1024, 512, ("KK queue", "KN from pte"), ("KA",)))
+CUSTOM_SEED = 10
+CUSTOM_ORACLE_ROWS = (0, 1, -1)   # rows held against golden/ckks.py
+CUSTOM_SHARD_B = 8
+
+
+def custom_inputs(n, batch, seed=CUSTOM_SEED):
+    """numpy inputs of a phase 10 row from numpy seed `seed`: values
+    float32 (batch, n/2), sk int32 (n,) in {-1, 0, 1}, share and err
+    seeds uint32 (batch, 16) (asym takes err as its private seeds), the
+    pk seed uint32 (16,) and the pk's error ep int64 (n,) in [-21, 21]."""
+    rng = np.random.default_rng(seed + n)
+    values = rng.uniform(-1, 1, (batch, n // 2)).astype(np.float32)
+    sk = (rng.integers(0, 3, n) - 1).astype(np.int32)
+    share, err = (rng.integers(0, 2 ** 32, (batch, 16), dtype=np.int64)
+                  .astype(np.uint32) for _ in range(2))
+    pk_seed = rng.integers(0, 2 ** 32, 16, dtype=np.int64).astype(np.uint32)
+    ep = rng.integers(-21, 22, n)
+    return values, sk, share, err, pk_seed, ep
+
+
+def seed_of(words) -> bytes:
+    """u32 seed words as the PRNG's 64 seed bytes."""
+    return np.asarray(words, dtype="<u4").tobytes()
+
+
+def oracle_rows(batch):
+    return sorted({r % batch for r in CUSTOM_ORACLE_ROWS})
+
+
+def check_oracle(out, cts, rows, name):
+    """Rows `rows` of out bit-exact against the C loop's ciphertexts
+    `cts` (golden/ckks.py, one per row); ok for the whole batch."""
+    for row, ct in zip(rows, cts):
+        got = {k: out[k][:, row].cpu().numpy() for k in ("c0", "c1")}
+        for key, want in (("pt", ct.conj_vals_int), ("pte", ct.pte)):
+            if not np.array_equal(out[key][row].cpu().numpy(), want):
+                raise AssertionError(f"{name}: row {row} {key} differs from "
+                                     f"golden/ckks.py")
+        for i, (c0, c1) in enumerate(ct.components):
+            if not (np.array_equal(got["c0"][i], c0)
+                    and np.array_equal(got["c1"][i], c1)):
+                raise AssertionError(f"{name}: row {row} prime {i} c0/c1 "
+                                     f"differ from golden/ckks.py")
+    if not bool(out["ok"].all()):
+        raise AssertionError(f"{name}: ok is False")
+
+
+def custom_timed(tag, n, batch, fns, smi):
+    """Phase 10's timing of one kind at (n, L = 3, batch): the custom
+    chain's compiled batch beside the default chain's, in alternated
+    pairs (CUDA events), each with its device busy, idle share and
+    footprint.  fns: {chain: (fn, args, first ms, resident, peak)}."""
+    (cfn, cargs, *cmem), (dfn, dargs, *dmem) = fns.values()
+    iters = DEPTH_ITERS_16384 if n >= 16384 else TIME_ITERS
+    ms = paired_cuda_ms(lambda: cfn(*cargs), lambda: dfn(*dargs), iters)
+    busy = [timeline(lambda f=f, a=a: f(*a))["busy_ms"]
+            for f, a in ((cfn, cargs), (dfn, dargs))]
+    mib = 2 ** 20
+    parts = []
+    for chain, t, b, (first_ms, resident, peak) in zip(
+            fns, ms, busy, (cmem, dmem)):
+        parts.append(f"{chain}: {t:.3f} ms/batch, {batch / t * 1e3:.1f} "
+                     f"enc/s, busy {b:.3f} ms, idle share {1 - b / t:.1%}, "
+                     f"footprint {(resident + peak) / mib:.1f} MiB "
+                     f"({resident / mib:.1f} resident + {peak / mib:.1f} "
+                     f"peak), first call {first_ms:.1f} ms")
+    print(f"[10 custom] {tag} n={n} L=3 B={batch}, compiled, CUDA events "
+          f"(medians of {iters} alternated pairs): {'; '.join(parts)}; "
+          f"{smi}")
+
+
+def custom_sampler_alone(n, batch, share, dev, smi):
+    """The rank-select (ops/sampling.py _rank_select: the chunked top-k,
+    the merge sort, the scatter) and KK's queue draw of one limb alone,
+    on the custom chain's first prime and the default chain's, from the
+    batch's share seeds at counter 0: device ms per call
+    (perf_stages.port_kernels, every device event of the fn, with its
+    event-count check)."""
+    ctr = sp.counter_zero((batch,), dev)
+    base = sp._squeeze(share, ctr, -(-4 * n // 136))[..., :n]
+    fns, labels = [], []
+    for chain, q, cap in (
+            ("custom", CUSTOM_CHAIN[0], sp.queue_cap_for(n, CUSTOM_CHAIN)),
+            ("default", default_parms(n, 3).moduli[0],
+             sp.queue_cap_for(n, default_parms(n, 3).moduli))):
+        m = ma.as_mod(q)
+        rejected = base >= m.max_multiple
+        qvals = sp._squeeze(share, ctr, 1, nwords=1, per_seed=cap,
+                            start=1)[..., 0]
+        qacc = qvals < m.max_multiple
+        fns += [lambda r=rejected, v=qvals, a=qacc:
+                sp._rank_select(base, r, v, a),
+                lambda cap=cap: k_keccak.keccak_squeeze(share, ctr, 1, 1,
+                                                        cap, 1)]
+        labels += [f"{chain} rank-select (q={q}, cap {cap}, "
+                   f"{int(rejected.sum(-1).max())} rejected at most)",
+                   f"{chain} KK queue ({batch} x {cap} streams)"]
+    ms = kernel_alone_ms(fns, TIME_ITERS, kinds=None)
+    print(f"[10 custom] n={n} B={batch}, one limb alone (device ms per "
+          f"call, every kernel of the fn, the mean of {TIME_ITERS} calls "
+          f"in one trace): "
+          + "; ".join(f"{lab} {t:.4f} ms" for lab, t in zip(labels, ms))
+          + f"; {smi}")
+
+
+def custom_row(n, sym_b, asym_b, sym_names, asym_names, mesh, dev, smi):
+    """One phase 10 row at degree n on the custom chain: the compiled
+    fused sym batch (sym_b) and asym batch (asym_b, pk from gen_pk_batch)
+    at full width, ok for every row and the oracle rows bit-exact against
+    golden/ckks.py (pk too); the limb-scan reference layout and the
+    compiled sym stream equal to the sym batch; the world-size-1
+    limb-sharded sym on a B = CUSTOM_SHARD_B slice equal to the
+    single-device parallel layout, decrypted to its pte; the kernels
+    against their plain versions on the batches' own tensors; each batch
+    timed beside the default chain's at (n, 3).  Returns (the launch
+    counts of each run with the kernels its path must launch, the kernel
+    rows)."""
+    parms = Parms(n, CUSTOM_CHAIN, CUSTOM_SCALE)
+    base = default_parms(n, len(CUSTOM_CHAIN))
+    values, sk, share, err, pk_seed, ep = custom_inputs(n, sym_b)
+    packed = serialize.pack_ternary((sk + 1).tolist())
+    args = state_to_device(values, sk, share, err, dev)
+    runs, rows = {}, []
+    tag = f"custom n={n}"
+    iters = DEPTH_ITERS_16384 if n >= 16384 else TIME_ITERS
+    t0, spent = time.perf_counter(), [0.0]
+
+    def oracle(fn, *a, **kw):
+        """A golden/ckks.py call, its host time counted."""
+        start = time.perf_counter()
+        out = fn(*a, **kw)
+        spent[0] += time.perf_counter() - start
+        return out
+    caps = (sp.queue_cap_for(n, CUSTOM_CHAIN), sp.queue_cap_for(
+        n, base.moduli))
+
+    # sym, compiled, checked against the C loop, the limb-scan reference
+    # layout, the compiled stream and the sharded path.
+    sym = make_fused_encryptor(parms, device=dev)
+    out, counts, *sym_mem = first_and_replay(sym, args)
+    rows_o = oracle_rows(sym_b)
+    check_oracle(out, [oracle(gckks.sym_encrypt, parms, values[r], packed,
+                              seed_of(share[r]), seed_of(err[r]))
+                       for r in rows_o], rows_o, f"{tag} sym")
+    runs[f"{tag} sym"] = (counts, SYM_PATH)
+    # Each compiled path's first call captures; its replay is counted.
+    limbscan = make_limbscan_encryptor(parms, "reference", "sf", device=dev)
+    limbscan(*args)
+    got, counts, _ = counted_run(lambda: limbscan(*args))
+    runs[f"{tag} limb-scan"] = (counts, SYM_PATH)
+    for key, want in out.items():
+        if not torch.equal(got[key], want):
+            raise AssertionError(f"{tag} limb-scan reference: {key} "
+                                 f"differs from the fused batch")
+    del got
+
+    def streamed():
+        return list(stream.sym_encrypt_stream(*args, parms, "f64",
+                                              "forward"))
+    streamed()
+    limbs, counts, _ = counted_run(streamed)
+    runs[f"{tag} sym stream"] = (counts, SYM_PATH)
+    check_limbs(limbs, out["c0"], out["c1"], [0, 1, 2], f"{tag} sym stream")
+    del limbs
+    part = tuple(a[:CUSTOM_SHARD_B] if i != 1 else a
+                 for i, a in enumerate(args))
+    sharded = make_limb_sharded_encryptor(mesh, parms)
+    sharded(*part)
+    got, counts, _ = counted_run(lambda: sharded(*part))
+    runs[f"{tag} limb-sharded"] = (counts, SYM_PATH)
+    require_same(f"{tag} limb-sharded", got, LimbscanEncryptor(
+        parms, "parallel", device=dev)(*part))
+    check_decrypts(got, args[1], parms, f"{tag} limb-sharded")
+    if not (torch.equal(got["pte"], out["pte"][:CUSTOM_SHARD_B])
+            and bool(got["ok"].all())):
+        raise AssertionError(f"{tag} limb-sharded: pte or ok wrong")
+    del got
+    print(f"[10 custom] {tag} sym L=3 B={sym_b} (chain {CUSTOM_CHAIN}, "
+          f"queue cap {caps[0]}, default chain's {caps[1]}), compiled: ok "
+          f"for all {sym_b}, rows {rows_o} bit-exact (c0, c1, pt, pte) "
+          f"against golden/ckks.py sym_encrypt; the limb-scan reference "
+          f"layout and the compiled sym stream (every limb) equal to the "
+          f"batch; the limb-sharded sym at world size 1 on rows "
+          f"0..{CUSTOM_SHARD_B - 1} equal to the parallel layout, "
+          f"decrypted to pte; launches {sum(counts.values())} a replay; "
+          f"{smi}")
+    rows += depth_kernels(sym_names, sym.fn, out, args, iters, dev, "10")
+    del out
+    custom_sampler_alone(n, sym_b, args[2], dev, smi)
+
+    # The default chain's sym batch at (n, 3), its golden rows at both ends.
+    gold = load_golden("sym", n, 3)
+    dv, ds, de = depth_inputs(gold, sym_b)
+    dargs = state_to_device(dv, gold["sk"], ds, de, dev)
+    dsym = make_fused_encryptor(base, device=dev)
+    dout, _, *dsym_mem = first_and_replay(dsym, dargs)
+    check_golden_ends(dout, gold, f"{tag} default-chain sym")
+    del dout
+    custom_timed("sym", n, sym_b, {"custom": (sym, args, *sym_mem),
+                                   "default": (dsym, dargs, *dsym_mem)}, smi)
+
+    # asym, compiled, under gen_pk_batch's key.
+    key_material = (args[1], torch.as_tensor(pk_seed.astype(np.int64),
+                                             device=dev),
+                    torch.as_tensor(ep, device=dev))
+    pk = gen_pk_batch(*key_material, parms)
+    gpk = oracle(gckks.gen_pk, parms, packed, seed_of(pk_seed),
+                 ep=ep.tolist())
+    for i, (w0, w1) in enumerate(gpk.components):
+        if not (np.array_equal(pk[0][i].cpu().numpy(), w0)
+                and np.array_equal(pk[1][i].cpu().numpy(), w1)):
+            raise AssertionError(f"{tag}: gen_pk_batch's prime {i} differs "
+                                 f"from golden/ckks.py gen_pk")
+    v, s = asym_state_to_device(values[:asym_b], err[:asym_b], dev)
+    aargs = (v, *pk, s)
+    asym = make_fused_asym_encryptor(parms, device=dev)
+    aout, counts, *asym_mem = first_and_replay(asym, aargs)
+    rows_o = oracle_rows(asym_b)
+    check_oracle(aout, [oracle(gckks.asym_encrypt, parms, values[r], gpk,
+                               seed_of(err[r]))
+                        for r in rows_o], rows_o, f"{tag} asym")
+    runs[f"{tag} asym"] = (counts, ASYM_PATH)
+    print(f"[10 custom] {tag} asym L=3 B={asym_b}, compiled, pk from "
+          f"gen_pk_batch bit-exact against golden/ckks.py gen_pk: ok for "
+          f"all {asym_b}, rows {rows_o} bit-exact (c0, c1, pt, pte) against "
+          f"golden/ckks.py asym_encrypt; launches {sum(counts.values())} a "
+          f"replay; {smi}")
+    rows += depth_kernels(asym_names, asym.encryptor, aout, aargs, iters,
+                          dev, "10")
+    del aout
+    dargs = (v, *gen_pk_batch(*key_material, base), s)
+    dasym = make_fused_asym_encryptor(base, device=dev)
+    dout, _, *dasym_mem = first_and_replay(dasym, dargs)
+    if not bool(dout["ok"].all()):
+        raise AssertionError(f"{tag} default-chain asym: ok is False")
+    del dout
+    custom_timed("asym", n, asym_b, {"custom": (asym, aargs, *asym_mem),
+                                     "default": (dasym, dargs, *dasym_mem)},
+                 smi)
+    for fn in (sym, dsym, limbscan, asym, dasym, sharded):
+        compiled_of(fn).entries.clear()
+    stream.sym_stream(parms, "forward", dev).chain.entries.clear()
+    print(f"[10 custom] {tag}: {time.perf_counter() - t0:.1f} s, of which "
+          f"golden/ckks.py {spent[0]:.1f} s on the host; {smi}")
+    return runs, rows
+
+
+def phase_custom(dev, smi, sm_hz):
+    """Phase 10: every CUSTOM_ROWS row (custom_row), the sharded path in a
+    world-size-1 group; then the kernels' times alone against their
+    bounds.  Returns (the runs' launch counts with the kernels each path
+    must launch, the kernel rows)."""
+    t0 = time.perf_counter()
+    runs, rows = {}, []
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp, \
+            launch.process_group(1, 0, str(pathlib.Path(tmp) / "store"),
+                                 dev.type):
+        mesh = make_mesh(1, 1, dev.type)
+        for row in CUSTOM_ROWS:
+            r, k = custom_row(*row, mesh, dev, smi)
+            runs.update(r)
+            rows += k
+    set_kernel_alone_ms(rows)
+    for r in rows:
+        print(f"[10 kernels] {bound_line(r, sm_hz)}; "
+              f"{r['kernel_ms']:.4f} ms alone; {smi}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[10 custom] phase 10 took {time.perf_counter() - t0:.1f} s; "
+          f"{smi}")
+    return runs, rows
+
+
+def phase_entry(dev, smi):
+    """Phase 11: seal_embedded_tpu_torch.entry.entry() on the card (a
+    compiled sym_encrypt_batch, 4096/3, B = 4): its first call timed, two
+    replays each torch.equal to the same fn on the CPU path
+    (entry(device="cpu")), rows 0..3 bit-exact against golden/ckks.py
+    sym_encrypt, ms per call.  Returns the launch counts of a replay."""
+    fn, args = port_entry()
+    if not (isinstance(fn, graphs.Graphed) and fn.device.type == dev.type
+            and all(a.device.type == dev.type for a in args)):
+        raise AssertionError(f"entry(): not compiled for {dev}")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - start) * 1e3
+    cpu_fn, cpu_args = port_entry(device="cpu")
+    for got, want in zip(args, cpu_args):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("entry(): example args differ on the card")
+    want = cpu_fn(*cpu_args)
+    for i in range(2):
+        out, counts, _ = counted_run(lambda: fn(*args))
+        for key, w in want.items():
+            if not torch.equal(out[key].cpu(), w):
+                raise AssertionError(f"entry(): replay {i} {key} differs "
+                                     f"from the CPU path")
+    if dev.type == "cuda" and len(fn.entries) != 1:
+        raise AssertionError(f"entry(): {len(fn.entries)} signatures")
+    parms = default_parms(4096, 3)
+    values, sk, share, err = (a.cpu().numpy() for a in cpu_args)
+    packed = serialize.pack_ternary((sk + 1).tolist())
+    rows = list(range(values.shape[0]))
+    check_oracle(out, [gckks.sym_encrypt(parms, values[r], packed,
+                                         seed_of(share[r]), seed_of(err[r]))
+                       for r in rows], rows, "entry()")
+    ms = cuda_time_ms(lambda: fn(*args), TIME_ITERS)
+    print(f"[11 entry] entry(): compiled sym_encrypt_batch n=4096 L=3 "
+          f"B={values.shape[0]} on {args[0].device}; two replays torch.equal "
+          f"to entry(device=\"cpu\") (c0, c1, pt, pte, ok); rows {rows} "
+          f"bit-exact against golden/ckks.py sym_encrypt; {ms:.3f} ms a call"
+          f" (CUDA events, median of {TIME_ITERS}), first call "
+          f"{first_ms:.1f} ms (two warm-ups and the capture); launches "
+          f"{sum(counts.values())} a replay; {smi}")
+    return counts
+
+
 def main():
     smi, sm_hz = phase_device()
     dev = torch.device("cuda", 0)
@@ -2370,6 +2755,10 @@ def main():
     depth_runs, depth_rows = phase_depth(dev, smi, sm_hz)
     runs.update(depth_runs)
     rows += depth_rows
+    custom_runs, custom_rows = phase_custom(dev, smi, sm_hz)
+    runs.update(custom_runs)
+    rows += custom_rows
+    runs["entry"] = (phase_entry(dev, smi), TABLE_PATH)
     runs["calibration"] = (calib_counts, ("calib",))
     for path, (counts, needed) in runs.items():
         missing = [k for k in needed if counts[k] < 1]

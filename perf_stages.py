@@ -115,38 +115,49 @@ def trace(run, cpu=True):
                   for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
-def port_kernels(fns, iters=ITERS):
+def port_kernels(fns, iters=ITERS, kinds=PORT_KERNELS):
     """The port's own kernel events of `iters` calls of each fn, one list
     per fn, from one trace in which marker kernels (torch.cuda._sleep's
     spin kernel) on the same stream separate the fns.  A trace can drop
-    events: a marker, or some of one fn's kernels (in chip_smoke.py's
-    runs, 4 of 10 launches).  So a lead marker goes first, and a trace is
-    taken again, up to MARKED_TRACES in all, when its markers do not part
-    the fns or when a fn's port kernel events are not a multiple of
-    iters."""
+    events near its start: a marker, or some of the first fn's kernels
+    (in chip_smoke.py's runs, 4 of KK base's 10 launches; in later runs
+    one of its 10, or one of the rank-select's 870 kernels, in every
+    retrace).  So a lead marker goes first, then a decoy stretch of
+    `iters` calls of the first fn whose events are not kept, and a trace
+    is taken again, up to MARKED_TRACES in all, when its markers do not
+    part the decoy and the fns or when a fn's kernel events are not a
+    multiple of iters.  kinds: the names of the kernels kept; None keeps
+    every device event but the markers (a fn of torch passes, such as the
+    rank-select)."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
 
     def run():
         torch.cuda._sleep(1000)
-        for fn in fns:
+        for fn in (fns[0], *fns):
             torch.cuda._sleep(1000)
             for _ in range(iters):
                 fn()
         torch.cuda._sleep(1000)
     seen = []
     for _ in range(MARKED_TRACES):
-        groups = [[e for e in group if any(k in e[2] for k in PORT_KERNELS)]
-                  for group in parted(trace(run))]
+        parts = parted(trace(run))
+        groups = [[e for e in group
+                   if kinds is None or any(k in e[2] for k in kinds)]
+                  for group in parts[1:]]
         counts = [len(group) for group in groups]
-        if len(groups) == len(fns) and all(c and c % iters == 0
-                                           for c in counts):
+        if len(parts) == len(fns) + 1 and all(c and c % iters == 0
+                                              for c in counts):
             return groups
         seen.append(counts)
-    raise RuntimeError(f"the profiler's traces held {seen} port kernel "
-                       f"events per group; want {len(fns)} groups, each a "
-                       f"multiple of {iters}")
+    short = [{name: c for name, c in collections.Counter(
+        e[2][:48] for e in group).items() if c % iters}
+        for group in groups if len(group) % iters]
+    raise RuntimeError(f"the profiler's traces held {seen} kernel events "
+                       f"per group after the decoy; want {len(fns)} "
+                       f"groups, each a multiple of {iters}; the last "
+                       f"trace's kernels whose counts are not: {short}")
 
 
 def parted(events):
@@ -162,11 +173,12 @@ def parted(events):
     return [g for g in groups if g]
 
 
-def kernel_alone_ms(fns, iters=ITERS):
+def kernel_alone_ms(fns, iters=ITERS, kinds=PORT_KERNELS):
     """Device ms per call of each fn spent in the port's own kernels: the
-    kernel alone, without the wrapper's host work or any torch pass."""
+    kernel alone, without the wrapper's host work or any torch pass (with
+    kinds None, in every kernel the fn runs: port_kernels)."""
     return [sum(end - start for start, end, _ in group) / iters / 1e3
-            for group in port_kernels(fns, iters)]
+            for group in port_kernels(fns, iters, kinds)]
 
 
 def union_us(intervals):

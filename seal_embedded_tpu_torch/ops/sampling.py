@@ -51,8 +51,25 @@ def chain_p_max(moduli) -> float:
 
 def queue_cap_for(n: int, moduli) -> int:
     """Chain-aware uniform queue bound: 160 at n=4096 on the 30-bit chain,
-    where the chain-blind uniform_queue_cap(4096) is 168."""
-    return uniform_queue_cap(n, chain_p_max(moduli))
+    where the chain-blind uniform_queue_cap(4096) is 168.
+
+    Where the JAX package's bound exceeds the (n / _CHUNK_N) * _CHUNK_K
+    rejected positions its chunked search keeps (a chain with a high
+    rejection rate at n > 4096, where the JAX function raises), the bound
+    is the queue draws the C loop itself uses, E + 8*sigma + 8 with
+    E = n p / (1 - p) and sigma = sqrt(n p) / (1 - p): each rejected word
+    is redrawn until a draw is accepted, and those redraws are rejected at
+    the same rate.  The JAX bound leaves that out, which at p = 0.125
+    (q = 536903681) would clear ok on about 0.3% of the rows at n = 8192
+    and 12% at 16384 (a binomial model); the bound is 1,472 and 2,768
+    there, against 1,272 and 2,400."""
+    p = chain_p_max(moduli)
+    cap = uniform_queue_cap(n, p)
+    if n <= _CHUNK_N or cap <= (n // _CHUNK_N) * _CHUNK_K:
+        return cap
+    e = n * p / (1.0 - p)
+    draws = e + 8.0 * (n * p) ** 0.5 / (1.0 - p) + 8.0
+    return int(-(-draws // 8)) * 8
 
 
 def _blocks_for_bytes(nbytes: int) -> int:
@@ -134,6 +151,20 @@ _CHUNK_N = 4096
 _CHUNK_K = 160
 
 
+def _chunk_k(nch: int, cap: int) -> int:
+    """Per-chunk bound of the rejected-position search.  Where the
+    chunks' nch * _CHUNK_K positions cover the cap (every default chain)
+    it is _CHUNK_K, as in the JAX package, bits and ok alike.  Above that
+    (a chain with a high rejection rate, e.g. q = 536903681 at n >= 8192,
+    where the JAX function raises; queue_cap_for) it is min(cap, _CHUNK_N):
+    no chunk is cut before the row's cap is, and a chunk with more than
+    cap rejections already fails the row through num_rejected >
+    num_accepted, so the per-chunk ok adds nothing there."""
+    if nch * _CHUNK_K >= cap:
+        return _CHUNK_K
+    return min(cap, _CHUNK_N)
+
+
 def _rejected_positions(rejected, cap: int):
     """Positions of the first `cap` rejected entries of each row, in
     position order (n where the rank is invalid).  Returns (positions
@@ -154,15 +185,16 @@ def _rejected_positions(rejected, cap: int):
                                                   dtype=torch.bool)
 
     nch = n // _CHUNK_N
+    k = _chunk_k(nch, cap)
     rch = rejected.reshape(rejected.shape[:-1] + (nch, _CHUNK_N))
-    ok = (rch.sum(dim=-1) <= _CHUNK_K).all(dim=-1)
+    ok = (rch.sum(dim=-1) <= k).all(dim=-1)
     span = torch.arange(_CHUNK_N, device=dev)
     keys = torch.where(rch, _CHUNK_N - span,
                        torch.zeros((), dtype=torch.int64, device=dev))
-    lpos = _CHUNK_N - torch.topk(keys, _CHUNK_K, dim=-1).values
+    lpos = _CHUNK_N - torch.topk(keys, k, dim=-1).values
     cidx = torch.arange(nch, device=dev)[:, None]
     gpos = torch.where(lpos == _CHUNK_N, n, lpos + cidx * _CHUNK_N)
-    flat = gpos.reshape(gpos.shape[:-2] + (nch * _CHUNK_K,))
+    flat = gpos.reshape(gpos.shape[:-2] + (nch * k,))
     return torch.sort(flat, dim=-1).values[..., :cap], num_rejected, ok
 
 

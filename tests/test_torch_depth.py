@@ -195,13 +195,16 @@ def test_parted_survives_a_lost_marker():
 
 def test_port_kernels_retraces_a_trace_that_lost_events(monkeypatch):
     """A trace that lost one of a fn's kernel launches, or a marker, is
-    taken again; the first whole one is returned, port kernels only."""
+    taken again; the first whole one is returned, port kernels only,
+    without the decoy stretch (the first fn's calls before the fns), which
+    may lose events."""
     mark = (0.0, 0.0, "void spin_kernel(long)")
     k0, k1 = (1.0, 2.0, "keccak_x"), (3.0, 4.0, "ntt_kernel")
     other = (5.0, 6.0, "elementwise_kernel")
-    whole = [mark, mark, k0, k0, other, mark, k1, k1, mark]
-    lost_launch = [mark, mark, k0, k0, mark, k1, mark]
-    lost_marker = [mark, mark, k0, k0, k1, k1, mark]
+    decoy = [mark, mark, k0, mark]
+    whole = decoy + [k0, k0, other, mark, k1, k1, mark]
+    lost_launch = decoy + [k0, k0, mark, k1, mark]
+    lost_marker = decoy + [k0, k0, k1, k1, mark]
     traces = [lost_launch, lost_marker, whole]
     monkeypatch.setattr(perf_stages, "trace",
                         lambda run, cpu=True: (run(), traces.pop(0))[1])
@@ -236,3 +239,20 @@ def test_timeline_drops_each_output(monkeypatch):
     assert len(refs) == 1 + perf_stages.PROFILED_BATCHES
     assert max(alive) == 0
     assert got["busy_ms"] == pytest.approx(3e-3 / perf_stages.PROFILED_BATCHES)
+
+
+def test_port_kernels_kinds_none_keeps_every_kernel(monkeypatch):
+    """With kinds None a fn's group holds every device event between its
+    markers (the rank-select's torch passes), not the port's kernels only;
+    kernel_alone_ms sums them per call."""
+    mark = (0.0, 0.0, "void spin_kernel(long)")
+    k0, k1 = (1.0, 2.0, "keccak_x"), (3.0, 5.0, "ntt_kernel")
+    other = (2.0, 4.0, "elementwise_kernel")
+    trace = [mark, mark, k0, mark, k0, other, mark, k1, mark]
+    monkeypatch.setattr(perf_stages, "trace", lambda run, cpu=True: trace)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    fns = [lambda: None, lambda: None]
+    assert perf_stages.port_kernels(fns, 1, None) == [[k0, other], [k1]]
+    assert perf_stages.port_kernels(fns, 1) == [[k0], [k1]]
+    assert perf_stages.kernel_alone_ms(fns, 1, None) == [3e-3, 2e-3]
