@@ -147,7 +147,27 @@ line each:
    first call timed, two replays each equal to the same fn on the CPU
    path, rows 0..3 bit-exact against golden/ckks.py, ms a call.
 
-Phases 7 to 11 run before phase 6 prints, so their runs are in phase
+12. memory: the device registry of compiled entries (``graphs.Registry``)
+   in the process phases 1 to 11 filled with graphs.  (a) The compiled
+   fused sym factory at n = 16384, L = 13 in turn at B = 1024, 2048, 3072,
+   4096, 5120 and 1024 again (``perf_memory.py``'s sequence: each batch
+   fits the card alone, their graphs together do not), golden at both
+   ends of every batch, per call the entries evicted, its ms and
+   memory_reserved; (b) the same factory at B = 128, 256, ..., 1024, each
+   signature's resident bytes and footprint, their sum, what the registry
+   kept; (c) the compiled sym stream at 16384/13, B = 1024, and the asym
+   one at B = 512, golden limb by limb at both ends and every limb equal
+   to the fused batch's, the pool, the footprint and the streamed ms
+   beside the batch + fetch; (d) phase 5's headline sym, every phase 8
+   factory and every phase 9 batch again, captured again where evicted,
+   golden or equal to their eager modules, and the whole call of a live
+   entry within 0.05 ms of the call as it was before the registry
+   (``perf_memory.call_cost``, each beside ``Entry.replay``), and a
+   compiled function that its caller drops leaves the registry zeroed.
+   Evicting or dropping a function's entries must give their pools back
+   (memory_reserved).
+
+Phases 7 to 12 run before phase 6 prints, so their runs are in phase
 6's list; phases 4, 5 and 5b call the factories, so they capture graphs
 too.
 Imports no jax and nothing of the JAX package.  Any failure raises and
@@ -158,6 +178,7 @@ object with "ok" and the device; the line before it lists the kernels.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import pathlib
 import statistics
@@ -168,6 +189,8 @@ import time
 import numpy as np
 import torch
 
+from perf_memory import (SEQUENCE, SEQUENCE_L, SEQUENCE_N, call_cost,
+                         run_sequence, timed_call)
 from perf_stages import PORT_KERNELS, kernel_alone_ms, timeline, trace
 from seal_embedded_tpu_torch import adapter, api, graphs, sweep
 from seal_embedded_tpu_torch.ckks import stream
@@ -1093,8 +1116,8 @@ def phase_streams(dev, smi, parms, args, ainputs):
          cbatch) in stream_cases(dev, parms, args, ainputs):
         name = f"stream {tag}"
         torch.cuda.synchronize()
-        cached.chain.entries.clear()
-        compiled_of(cbatch).entries.clear()
+        cached.chain.clear()
+        compiled_of(cbatch).clear()
 
         def first():
             t0 = time.perf_counter()
@@ -1377,7 +1400,7 @@ def phase_deep_stream(dev, smi):
     args = deep_inputs(gold, dev)
     compiled = stream.sym_stream(parms, "forward", dev)
     torch.cuda.synchronize()
-    compiled.chain.entries.clear()
+    compiled.chain.clear()
     limbs = list(compiled(*args))
     entry, = compiled.chain.entries.values()
     host = {k: torch.as_tensor(np.stack([l[k] for l in limbs])
@@ -1902,7 +1925,7 @@ def phase_compiled(dev, smi):
          needed) in compiled_cases(dev):
         g = compiled_of(fn)
         torch.cuda.synchronize()
-        g.entries.clear()   # earlier phases' graphs: this first call captures
+        g.clear()   # earlier phases' graphs: this first call captures
         base = torch.cuda.memory_allocated()
         start = time.perf_counter()
         out = fn(*args)
@@ -2367,10 +2390,11 @@ def phase_depth(dev, smi, sm_hz):
         make = (make_fused_encryptor if kind == "sym"
                 else make_fused_asym_encryptor)
         compiled_of(make(default_parms(n, nprimes),
-                         device=dev)).entries.clear()
+                         device=dev)).clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     start = torch.cuda.memory_reserved()
+    evictions = graphs.registry_for(dev).evictions
     runs, rows = {}, []
     for tag, kind, n, nprimes, batches, names in DEPTH_ROWS:
         for batch in batches:
@@ -2389,7 +2413,9 @@ def phase_depth(dev, smi, sm_hz):
           f" {kept / mib:.1f} MiB after them, every signature's graph "
           f"resident ({(kept - start) / mib:.1f} MiB for the "
           f"{len(runs)} batches and their B={DEPTH_INDEP_B} signatures), "
-          f"of the card's {card / mib:.1f} MiB; phase 9 took "
+          f"of the card's {card / mib:.1f} MiB; "
+          f"{graphs.registry_for(dev).evictions - evictions} evictions in "
+          f"the rows; phase 9 took "
           f"{time.perf_counter() - t0:.1f} s; {smi}")
     return runs, rows
 
@@ -2647,8 +2673,8 @@ def custom_row(n, sym_b, asym_b, sym_names, asym_names, mesh, dev, smi):
                                      "default": (dasym, dargs, *dasym_mem)},
                  smi)
     for fn in (sym, dsym, limbscan, asym, dasym, sharded):
-        compiled_of(fn).entries.clear()
-    stream.sym_stream(parms, "forward", dev).chain.entries.clear()
+        compiled_of(fn).clear()
+    stream.sym_stream(parms, "forward", dev).chain.clear()
     print(f"[10 custom] {tag}: {time.perf_counter() - t0:.1f} s, of which "
           f"golden/ckks.py {spent[0]:.1f} s on the host; {smi}")
     return runs, rows
@@ -2728,6 +2754,360 @@ def phase_entry(dev, smi):
     return counts
 
 
+# Phase 12: the device registry of compiled entries (graphs.Registry), in
+# the process that phases 1 to 11 filled with graphs.  (a) is
+# perf_memory.py's sequence: each batch fits the card alone, their
+# graphs together do not; (b) eight signatures of one function; (c) the
+# deep streams at full batch; (d) the early entries after the evictions.
+MEMORY_N, MEMORY_L = SEQUENCE_N, SEQUENCE_L
+MEMORY_SEQUENCE = SEQUENCE
+MEMORY_SIGNATURES = tuple(range(128, 1025, 128))
+MEMORY_STREAM_B = {"sym": 1024, "asym": 512}
+MEMORY_PAIRS = 30
+MEMORY_TOUCHES = 1000
+MIB = 2 ** 20
+
+
+def entry_name(owner, sig) -> str:
+    """A registry entry as function and signature: the function's name and
+    its tensor arguments' shapes (owner None: a function since dropped)."""
+    if owner is None:
+        name = "a dropped function"
+    else:
+        fn = owner.fn if isinstance(owner, graphs.Graphed) else owner.prologue
+        fn = getattr(fn, "func", fn)                 # a partial's function
+        name = getattr(fn, "__qualname__", type(fn).__name__)
+    shapes = ", ".join("x".join(map(str, k[1])) for k in sig[0]
+                       if k[0] == "tensor")
+    return f"{name}({shapes})"
+
+
+def evicted_since(reg, keys) -> str:
+    """The entries of `keys` (registry keys: a function's weak reference
+    and a signature) that the registry no longer holds."""
+    gone = [entry_name(ref(), sig) for ref, sig in keys
+            if (ref, sig) not in reg.order]
+    return f"{len(gone)} evicted" + (f": {'; '.join(gone)}" if gone else "")
+
+
+def cleared(g) -> str:
+    """Evict every entry of the compiled function g: memory_reserved must
+    fall by at least their pools' bytes (what each capture left reserved
+    beyond its static inputs), or the pools did not go back."""
+    entries = list(g.entries.values())
+    pools = sum(e.resident - graphs.nbytes(e.inputs) for e in entries)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    g.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fell = before - torch.cuda.memory_reserved()
+    if fell < pools:
+        raise AssertionError(f"cleared {len(entries)} entries: "
+                             f"memory_reserved fell {fell} B, their pools "
+                             f"hold {pools} B")
+    return (f"{len(entries)} entries evicted, memory_reserved fell "
+            f"{fell / MIB:.1f} MiB for {pools / MIB:.1f} MiB of pools")
+
+
+def memory_case(batch, dev):
+    """(compiled fused sym factory, its Graphed, args of depth_inputs,
+    their signature, gold) of one sym batch at MEMORY_N, MEMORY_L."""
+    gold = load_golden("sym", MEMORY_N, MEMORY_L)
+    values, share, err = depth_inputs(gold, batch)
+    args = state_to_device(values, gold["sk"], share, err, dev)
+    fn = make_fused_encryptor(default_parms(MEMORY_N, MEMORY_L), device=dev)
+    return fn, compiled_of(fn), args, graphs.signature(args, {}), gold
+
+
+def memory_sequence(dev, smi, reg, card):
+    """(a): MEMORY_SEQUENCE through the compiled fused sym factory at
+    16384/13 (perf_memory.run_sequence), its own earlier graphs evicted
+    first, every earlier phase's kept: each batch golden at both ends and
+    ok for all; per call whether it captured (again), its ms, the entry's
+    resident bytes, the entries evicted, the warm-ups run again after
+    running out, memory_reserved.  Returns the largest peak
+    memory_reserved."""
+    gold = load_golden("sym", MEMORY_N, MEMORY_L)
+    fn = make_fused_encryptor(default_parms(MEMORY_N, MEMORY_L), device=dev)
+    g = compiled_of(fn)
+    print(f"[12 memory] (a) {entry_name(g, ((), ()))}: its earlier "
+          f"signatures first: {cleared(g)}; {smi}")
+    top, seen, before = 0, set(), {}
+
+    def inputs_of(batch):
+        values, share, err = depth_inputs(gold, batch)
+        args = state_to_device(values, gold["sk"], share, err, dev)
+        before.update(keys=list(reg.order), retries=reg.retries,
+                      fresh=graphs.signature(args, {}) not in g.entries)
+        return args
+
+    def report(i, batch, args, out, ms, peak):
+        nonlocal top
+        check_golden_ends(out, gold, f"memory (a) call {i} B={batch}")
+        top = max(top, peak)
+        how = ("replayed" if not before["fresh"] else "captured again"
+               if batch in seen else "captured")
+        seen.add(batch)
+        entry = g.entries[graphs.signature(args, {})]
+        print(f"[12 memory] (a) call {i} sym n={MEMORY_N} L={MEMORY_L} "
+              f"B={batch}: rows 0..5 and {batch - 6}..{batch - 1} golden, "
+              f"ok for all; {how} in {ms:.1f} ms (host clock, card "
+              f"finished); entry resident {entry.resident / MIB:.1f} MiB; "
+              f"{evicted_since(reg, before['keys'])}, "
+              f"{reg.retries - before['retries']} warm-ups run again; "
+              f"memory_reserved after "
+              f"{torch.cuda.memory_reserved() / MIB:.1f} MiB, peak in the "
+              f"call {peak / MIB:.1f} of {card / MIB:.1f}; registry "
+              f"{len(reg.order)} entries, {reg.resident() / MIB:.1f} MiB; "
+              f"{smi}")
+    run_sequence(fn, inputs_of, report, MEMORY_SEQUENCE)
+    return top
+
+
+def memory_signatures(dev, smi, reg, card):
+    """(b): MEMORY_SIGNATURES through the compiled fused sym factory at
+    16384/13 (MAX_ENTRIES of them), its earlier graphs evicted first: each
+    golden at both ends; each signature's resident bytes and footprint,
+    their sum and what the registry kept.  Returns the largest peak
+    memory_reserved."""
+    top, rows = 0, []
+    for batch in MEMORY_SIGNATURES:
+        fn, g, args, sig, gold = memory_case(batch, dev)
+        if not rows:
+            print(f"[12 memory] (b) {entry_name(g, sig)}: {cleared(g)}")
+        keys = list(reg.order)
+        out, ms, peak = timed_call(fn, args)
+        check_golden_ends(out, gold, f"memory (b) B={batch}")
+        del out
+        replay_peak = peak_run(lambda: fn(*args))[2]
+        resident = g.entries[sig].resident
+        rows.append((batch, sig, resident, resident + replay_peak))
+        top = max(top, peak)
+        print(f"[12 memory] (b) sym n={MEMORY_N} L={MEMORY_L} B={batch}: "
+              f"golden at both ends, ok for all; captured in {ms:.1f} ms; "
+              f"resident {resident / MIB:.1f} MiB, footprint "
+              f"{(resident + replay_peak) / MIB:.1f} MiB (+ a replay's peak"
+              f" {replay_peak / MIB:.1f}); {evicted_since(reg, keys)}; {smi}")
+    kept = [b for b, sig, _, _ in rows if sig in g.entries]
+    print(f"[12 memory] (b) {len(rows)} signatures: resident "
+          f"{sum(r[2] for r in rows) / MIB:.1f} MiB in all, footprints "
+          f"{sum(r[3] for r in rows) / MIB:.1f} MiB in all; the registry "
+          f"kept B={kept} ({len(reg.order)} entries, "
+          f"{reg.resident() / MIB:.1f} MiB); memory_reserved "
+          f"{torch.cuda.memory_reserved() / MIB:.1f} MiB of "
+          f"{card / MIB:.1f}; {smi}")
+    return top
+
+
+def memory_streams(dev, smi):
+    """(c): the compiled sym stream at 16384/13, B=1024, and the asym one
+    at B=512 (pk from gen_pk_batch), through their public entry points:
+    the golden rows at both ends limb by limb, every limb against the
+    compiled fused factory's batch (golden at both ends), a replay equal;
+    the pool's resident bytes (the registry's), the footprint, the
+    streamed ms beside the compiled batch + fetch.  Returns the launch
+    counts of one replayed stream of each with the kernels its path must
+    launch."""
+    parms = default_parms(MEMORY_N, MEMORY_L)
+    walk = list(range(MEMORY_L))
+    runs = {}
+    for kind, batch in MEMORY_STREAM_B.items():
+        name = f"memory (c) {kind} stream n={MEMORY_N} B={batch}"
+        gold = load_golden(kind, MEMORY_N, MEMORY_L)
+        G = gold["v"].shape[0]
+        values, share, err = depth_inputs(gold, batch)
+        if kind == "sym":
+            args = state_to_device(values, gold["sk"], share, err, dev)
+            cached = stream.sym_stream(parms, "forward", dev)
+            fn = make_fused_encryptor(parms, device=dev)
+
+            def streamed():
+                return list(stream.sym_encrypt_stream(*args, parms))
+        else:
+            pk = golden_pk(gold, parms, dev)
+            check_pk(pk, gold, name)
+            v, s = asym_state_to_device(values, err, dev)
+            args = (v, *pk, s)
+            cached = stream.asym_stream(parms, "forward", dev)
+            fn = make_fused_asym_encryptor(parms, device=dev)
+
+            def streamed():
+                return list(stream.asym_encrypt_stream(v, *pk, s, parms))
+        cached.chain.clear()
+        limbs, first_ms, _ = timed_call(streamed, ())
+        entry, = cached.chain.entries.values()
+        host = {k: torch.as_tensor(np.stack([l[k] for l in limbs])
+                                   .astype(np.int64)) for k in ("c0", "c1")}
+        for at in (0, batch - G):
+            check_golden_rows({**host, "ok": torch.ones(1, dtype=torch.bool)},
+                              gold, f"{name} rows {at}..", ("c0", "c1"), at)
+        del host
+        out = fn(*args)
+        check_golden_ends(out, gold, f"{name}: the fused batch")
+        want = [out[k].cpu() for k in ("c0", "c1")]
+        del out
+        check_limbs(limbs, *want, walk, name)
+        limbs, counts, peak = peak_run(streamed)
+        runs[name] = (counts, SYM_PATH if kind == "sym" else ASYM_PATH)
+        check_limbs(limbs, *want, walk, f"{name}, replayed")
+        del limbs, want
+        g = compiled_of(fn)
+        batch_resident = next(e.resident for e in g.entries.values()
+                              if e.inputs[0].shape[0] == batch)
+        batch_peak = peak_run(lambda: fetch_to_pinned(fn(*args)))[2]
+        (ms, batch_ms), _ = rotated_host_ms(
+            [streamed, lambda: fetch_to_pinned(fn(*args))], DEEP_ROUNDS)
+        print(f"[12 memory] (c) compiled {kind} stream n={MEMORY_N} "
+              f"L={MEMORY_L} B={batch}: rows 0..{G - 1} and {batch - G}.."
+              f"{batch - 1} golden_{kind}_{MEMORY_N}_{MEMORY_L}.npz limb by "
+              f"limb, every limb equal to the compiled fused batch's (golden "
+              f"at both ends), a replay equal; first call {first_ms:.1f} ms;"
+              f" pool resident {entry.resident / MIB:.1f} MiB, footprint "
+              f"{(entry.resident + peak) / MIB:.1f} MiB (+ {peak / MIB:.1f}"
+              f" peak above the inputs) vs compiled batch + fetch "
+              f"{(batch_resident + batch_peak) / MIB:.1f} "
+              f"({batch_resident / MIB:.1f} + {batch_peak / MIB:.1f}); "
+              f"streamed {ms:.3f} ms vs compiled batch + fetch "
+              f"{batch_ms:.3f} ms (host clock to the last limb in host "
+              f"memory, medians of {DEEP_ROUNDS} rotated rounds); launches "
+              f"{sum(counts.values())}; {smi}")
+    return runs
+
+
+def memory_early(dev, smi, early):
+    """(d): phase 5's headline sym 4096/3 B=1024 (rows 0..5 golden) and
+    the cost of a call of its live entry (perf_memory.call_cost): the
+    whole call against the call as it was before the registry, each
+    beside Entry.replay, in rotated rounds; then every phase 8 factory at
+    the headline's shape (equal to its eager module, its check) and every
+    phase 9 batch (golden at both ends), each captured again if the
+    registry evicted it."""
+    parms = default_parms(N, L)
+    gold = load_golden("sym", N, L)
+    values, share, err = headline_inputs(gold)
+    args = state_to_device(values, gold["sk"], share, err, dev)
+    fn = make_fused_encryptor(parms, device=dev)
+    g = compiled_of(fn)
+    sig = graphs.signature(args, {})
+    how = ("replayed" if sig in g.entries else "captured again"
+           if (g.ref, sig) in early else "captured")
+    out = fn(*args)
+    check_golden_rows(out, gold, "memory (d) headline sym")
+    del out
+    cost = call_cost(g, args, MEMORY_PAIRS)
+    start = time.perf_counter()
+    for _ in range(MEMORY_TOUCHES):
+        with g.use(sig, args, {}):
+            pass
+    touch_us = (time.perf_counter() - start) / MEMORY_TOUCHES * 1e6
+    added = cost["call"] - cost["before_registry"]
+    if added >= 0.05:
+        raise AssertionError(f"memory (d): the whole call {cost['call']:.4f}"
+                             f" ms, as before the registry "
+                             f"{cost['before_registry']:.4f} ms")
+    print(f"[12 memory] (d) headline sym n={N} L={L} B={B} {how}, rows "
+          f"0..5 golden; then its live entry: the whole call "
+          f"{cost['call']:.4f} ms, as before the registry "
+          f"{cost['before_registry']:.4f} ms (the registry adds "
+          f"{added:.4f}), Entry.replay {cost['replay']:.4f} ms (CUDA events,"
+          f" medians of {MEMORY_PAIRS} rotated rounds); a lookup with its "
+          f"locks {touch_us:.2f} us (host, mean of {MEMORY_TOUCHES}); {smi}")
+
+    again, live = [], []
+    for tag, cfn, eager, cargs, _, _, check, _ in compiled_cases(dev):
+        (live if any(e.inputs[0].shape == cargs[0].shape
+                     for e in compiled_of(cfn).entries.values())
+         else again).append(tag)
+        out = cfn(*cargs)
+        require_outputs_equal(f"memory (d) {tag}", out, eager(*cargs))
+        check(out, f"memory (d) {tag}")
+    for tag, kind, n, nprimes, batches, _ in DEPTH_ROWS:
+        for batch in batches:
+            dfn, _, dargs, _, _, dgold = depth_case(kind, n, nprimes, batch,
+                                                    dev)
+            name = f"{tag} B={batch}"
+            (live if any(e.inputs[0].shape[0] == batch
+                         for e in compiled_of(dfn).entries.values())
+             else again).append(name)
+            check_golden_ends(dfn(*dargs), dgold, f"memory (d) {name}")
+    print(f"[12 memory] (d) phase 8's factories and phase 9's batches, "
+          f"equal to their eager modules or golden at both ends: "
+          f"{len(again)} captured again ({', '.join(again)}), {len(live)} "
+          f"still live; {smi}")
+
+
+def memory_dropped(dev, smi):
+    """(d): a compiled function that its caller drops (an uncached
+    graphed SymEncryptor at the headline's shape, rows 0..5 golden): its
+    entry leaves the registry, its static inputs (the key's copy among
+    them) are zeroed, and memory_reserved falls by its pool."""
+    gold = load_golden("sym", N, L)
+    values, share, err = headline_inputs(gold)
+    args = state_to_device(values, gold["sk"], share, err, dev)
+    g = graphs.graphed(SymEncryptor(default_parms(N, L), dev), dev)
+    check_golden_rows(g(*args), gold, "memory (d) a dropped function")
+    entry, = g.entries.values()
+    inputs, pool = entry.inputs, entry.resident - graphs.nbytes(entry.inputs)
+    reg = graphs.registry_for(dev)
+    held = len(reg.order)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    del g, entry
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fell = before - torch.cuda.memory_reserved()
+    if len(reg.order) != held - 1 or any(bool(t.any()) for t in inputs):
+        raise AssertionError("memory (d): a dropped function's entry stayed"
+                             " in the registry or was not zeroed")
+    if fell < pool:
+        raise AssertionError(f"memory (d): dropping a function gave back "
+                             f"{fell} B, its pool holds {pool} B")
+    print(f"[12 memory] (d) a compiled function dropped by its caller: its "
+          f"entry left the registry, static inputs zeroed, memory_reserved "
+          f"fell {fell / MIB:.1f} MiB for a pool of {pool / MIB:.1f} MiB; "
+          f"{smi}")
+
+
+def phase_memory(dev, smi):
+    """Phase 12: the registry holds the card's memory as jax.jit does (see
+    memory_sequence, memory_signatures, memory_streams, memory_early); no
+    peak memory_reserved in a call above the card.  Returns the launch
+    counts of the streams' replays with the kernels their paths must
+    launch."""
+    t0 = time.perf_counter()
+    reg = graphs.registry_for(dev)
+    early = set(reg.order)
+    evictions, retries = reg.evictions, reg.retries
+    card = torch.cuda.get_device_properties(dev).total_memory
+    print(f"[12 memory] before phase 12: the registry holds {len(early)} "
+          f"entries of {len({owner for owner, _ in early})} functions, "
+          f"{reg.resident() / MIB:.1f} MiB left reserved by their captures"
+          f", {reg.evictions} evictions so far (the earlier phases clear a "
+          f"function's entries before they time its first call); "
+          f"memory_reserved "
+          f"{torch.cuda.memory_reserved() / MIB:.1f} MiB of "
+          f"{card / MIB:.1f}; {smi}")
+    top = max(memory_sequence(dev, smi, reg, card),
+              memory_signatures(dev, smi, reg, card))
+    runs = memory_streams(dev, smi)
+    memory_early(dev, smi, early)
+    memory_dropped(dev, smi)
+    if top > card:
+        raise AssertionError(f"memory_reserved peaked at {top} B, above the "
+                             f"card's {card} B")
+    print(f"[12 memory] phase 12: {reg.evictions - evictions} evictions, "
+          f"{reg.retries - retries} warm-ups run again, "
+          f"peak memory_reserved in a call {top / MIB:.1f} MiB of "
+          f"{card / MIB:.1f}; {len(reg.order)} entries, "
+          f"{reg.resident() / MIB:.1f} MiB kept; phase 12 took "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return runs
+
+
 def main():
     smi, sm_hz = phase_device()
     dev = torch.device("cuda", 0)
@@ -2759,6 +3139,7 @@ def main():
     runs.update(custom_runs)
     rows += custom_rows
     runs["entry"] = (phase_entry(dev, smi), TABLE_PATH)
+    runs.update(phase_memory(dev, smi))
     runs["calibration"] = (calib_counts, ("calib",))
     for path, (counts, needed) in runs.items():
         missing = [k for k in needed if counts[k] < 1]

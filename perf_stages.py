@@ -197,7 +197,10 @@ def timeline(fn, labels=()):
     """Over PROFILED_BATCHES calls of fn: busy ms, span ms and idle share
     of the device, and device ms per stage of `labels` (the names of the
     record_function ranges around the stages).  Without labels the trace
-    leaves out the profiler's CPU activity, which costs host time."""
+    leaves out the profiler's CPU activity, which costs host time.  A
+    trace that saw no device work (on the card the profiler once lost
+    every event of phase 8's) is taken again, up to MARKED_TRACES in
+    all."""
     fn()
     torch.cuda.synchronize()
 
@@ -206,11 +209,15 @@ def timeline(fn, labels=()):
         # 13, B = 1024 five batches' outputs would hold 18 GB.
         for _ in range(PROFILED_BATCHES):
             fn()
-    evs = trace(run, cpu=bool(labels))
+    for _ in range(MARKED_TRACES):
+        evs = trace(run, cpu=bool(labels))
+        kernels = [e for e in evs if e[2] not in labels]
+        if kernels:
+            break
+    else:
+        raise RuntimeError(f"the profiler saw no device work in "
+                           f"{MARKED_TRACES} traces")
     ranges = [e for e in evs if e[2] in labels]
-    kernels = [e for e in evs if e[2] not in labels]
-    if not kernels:
-        raise RuntimeError("the profiler saw no device work")
     per_stage = collections.defaultdict(float)
     for start, end, _ in kernels:
         inside = [r for r in ranges if r[0] <= start < r[1]]

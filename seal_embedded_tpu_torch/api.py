@@ -310,11 +310,14 @@ def se_cleanup(ctx: SEContext) -> None:
     decryptor's graphs, and the static inputs, last hand-offs (ntt(s),
     or pk and its quotients) and outputs of the stream graphs
     se_encrypt_streaming ran for it.  Arrays the caller passed to
-    se_setup_custom are never touched: the context copied them.  Memory
-    that PyTorch's allocators free is not scrubbed, nor are the
-    intermediates in a batch graph's private pool (for example ntt(s) or
-    pk's quotients), so keep contexts short-lived and call se_cleanup as
-    soon as the last batch is done."""
+    se_setup_custom are never touched: the context copied them.  A graph
+    that its device's registry evicts before se_cleanup runs (to make
+    room for another capture, graphs.py) has the same copies zeroed
+    before its memory goes back.  Other memory that PyTorch's allocators
+    free is not scrubbed, nor are the intermediates in a batch graph's
+    private pool (for example ntt(s) or pk's quotients), evicted or not,
+    so keep contexts short-lived and call se_cleanup as soon as the last
+    batch is done."""
     for name in ("sk_signed", "pk0", "pk1"):
         buf = getattr(ctx, name)
         if buf is not None:

@@ -9,8 +9,7 @@ its kernels.
 
 * **Signature**: each tensor argument's shape, dtype and device, and every
   other argument by type and value (it must be hashable).  The entries of
-  one function form an LRU of ``MAX_ENTRIES``; an evicted entry drops its
-  graph, its static tensors and its private memory pool.
+  one function form an LRU of ``MAX_ENTRIES``.
 * **Capture**: the tensor arguments are copied into static buffers, the
   function is warmed up on a side stream (``WARMUP_CALLS`` calls: the
   kernel library loads, its functions are set up and loaded lazily, the
@@ -23,6 +22,26 @@ its kernels.
   the pool, so they belong to the caller and a later call never
   overwrites them (as JAX arrays).  One lock per entry keeps two threads
   off one graph's static tensors.
+* **Memory** (``Registry``): an entry keeps its pool (intermediates and
+  static outputs) and its static inputs reserved while it lives, where a
+  jitted function keeps nothing between calls.  So every entry on a card,
+  of every compiled function, is registered in one registry per device,
+  which orders them by last use and records the bytes each capture left
+  reserved.  A capture first measures its warm-up's peak; if the warm-up
+  runs out of memory, least recently used entries are evicted until what
+  the function's last capture needed, per byte of its inputs, is free
+  (or, without one, a single entry), and it runs again (it raises once
+  nothing is left to evict); then entries are
+  evicted, oldest first and of any function, until that peak fits in what
+  the card has free, and once it is captured until its outputs fit, for
+  the first replay's copies.  Any sequence of calls that each fits the
+  card alone thus runs to its end, as under ``jax.jit``; entries are
+  evicted only when a capture needs their room, so memory that eager
+  code allocates meanwhile does not evict them.  One capture runs on a
+  device at a time (it reads the device's memory); live entries of every
+  function replay meanwhile.  The registry holds its functions weakly: a
+  compiled function that its caller drops (or a factory's cache pushes
+  out) has its entries released as at an eviction.
 * **Tallies**: a replay runs no wrapper and no collective of
   ``parallel/comm.py``, so the entry keeps the change that the capture
   (which launched nothing) made to the kernel counters and the maps
@@ -35,7 +54,8 @@ the JAX package's jitted per-limb step.
 
 * **One graph per signature**: the prologue and every step, in walk
   order, captured as one graph in one private pool, an entry of an LRU
-  of ``MAX_ENTRIES`` as Graphed's: a chain of 13 limbs is one entry.
+  of ``MAX_ENTRIES`` and of its device's registry as Graphed's: a chain
+  of 13 limbs is one entry.
   Within the capture a step's scratch is freed before the next step
   allocates, so the pool holds the hand-offs, every step's outputs and
   about one step's scratch.
@@ -56,8 +76,11 @@ plain version, and a chain runs its steps eagerly.
 from __future__ import annotations
 
 import copy
+import sys
 import threading
+import weakref
 from collections import OrderedDict
+from contextlib import contextmanager
 from functools import partial
 
 import torch
@@ -108,6 +131,252 @@ def _static(a):
     if isinstance(a, torch.Tensor):
         return torch.empty(a.shape, dtype=a.dtype, device=a.device).copy_(a)
     return a
+
+
+def nbytes(obj) -> int:
+    """The bytes of the tensors in obj (see map_tensors)."""
+    sizes = []
+    map_tensors(obj, lambda t: sizes.append(t.nbytes))
+    return sum(sizes)
+
+
+class CardMemory:
+    """A card's memory as the registry reads it, through torch.cuda (the
+    tests put a fake card in its place)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def free(self) -> int:
+        """The bytes free on the card once the allocator has handed back
+        its cache and the pools of evicted entries (empty_cache)."""
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        return torch.cuda.mem_get_info(self.device)[0]
+
+    def reserved(self) -> int:
+        """The bytes the allocator holds once its cache is handed back."""
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(self.device)
+
+    def peak(self, fn):
+        """(fn(), the most that fn held above what was held when it
+        started: allocated or reserved, the larger; a private pool cannot
+        use the free room of the segments reserved before)."""
+        dev = self.device
+        reserved = self.reserved()
+        allocated = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        return out, max(torch.cuda.max_memory_reserved(dev) - reserved,
+                        torch.cuda.max_memory_allocated(dev) - allocated)
+
+
+class Registry:
+    """The live entries of every compiled function on one device, least
+    recently used first, each with the bytes its capture left reserved
+    (``Entry.resident``), and the captures that make room for themselves
+    by evicting them (see the module).  With no memory to hold to (a
+    function on the CPU, which captures nothing on its own) it keeps the
+    order only.
+
+    `order` maps (a function's weak reference, signature) to the entry,
+    so the registry keeps no function alive; the entries of one that is
+    dropped are released (zeroed, then dropped) at once, or when the
+    capture under way ends.  `lock` guards the bookkeeping only (`order`,
+    each function's `entries`, the counts) and is never held while a
+    card works or is waited for.  `capturing` lets one capture, with the
+    evictions and releases it makes, run on the device at a time: a
+    capture reads the device's memory, and no other thread may
+    synchronize while a graph is captured.  Live entries of any function
+    replay meanwhile."""
+
+    def __init__(self, memory=None):
+        self.memory = memory
+        self.lock = threading.Lock()
+        self.capturing = threading.RLock()
+        self.busy = 0            # captures under way (nested in a thread)
+        self.order: OrderedDict = OrderedDict()   # (ref, sig) -> Entry
+        self.dropped: list = []  # refs of dropped functions, to collect
+        self.evictions = 0
+        self.retries = 0         # warm-ups run again after running out
+
+    def lookup(self, owner, sig):
+        """owner's entry of sig, made the most recently used, or None."""
+        with self.lock:
+            entry = owner.entries.get(sig)
+            if entry is not None:
+                self.order.move_to_end((owner.ref, sig))
+        if self.dropped:
+            self.collect()
+        return entry
+
+    def miss(self, owner, sig, capture):
+        """owner's entry of sig after a lookup missed it: capture() (a
+        capture that makes its room through `captured`), registered as the
+        most recently used, owner's oldest entries beyond its max_entries
+        evicted."""
+        with self.capturing:
+            entry = self.lookup(owner, sig)   # another thread's capture
+            if entry is None:
+                self.busy += 1
+                try:
+                    entry = capture()
+                    with self.lock:
+                        self.order[owner.ref, sig] = entry
+                        owner.entries[sig] = entry
+                        mine = [k for k in self.order if k[0] is owner.ref]
+                        victims = self._pop(
+                            mine[:max(0, len(mine) - owner.max_entries)])
+                    self._release(victims)
+                finally:
+                    self.busy -= 1
+        self.collect()
+        return entry
+
+    def _pop(self, keys: list) -> list:
+        """Under `lock`: the entries of `keys`, taken out of `order` and
+        their functions' `entries`, counted as evictions."""
+        victims = []
+        for key in keys:
+            victims.append(self.order.pop(key))
+            owner = key[0]()
+            if owner is not None:
+                del owner.entries[key[1]]
+        self.evictions += len(victims)
+        return victims
+
+    @staticmethod
+    def _release(entries: list) -> None:
+        """Under `capturing`: each entry zeroed, then dropped (its
+        release)."""
+        for entry in entries:
+            entry.release()
+
+    def evict(self, owner) -> None:
+        """Evict every entry of owner."""
+        with self.capturing:
+            with self.lock:
+                victims = self._pop([(owner.ref, sig)
+                                     for sig in list(owner.entries)])
+            self._release(victims)
+
+    def clear(self) -> None:
+        """Evict every entry."""
+        with self.capturing:
+            with self.lock:
+                victims = self._pop(list(self.order))
+            self._release(victims)
+
+    def dropped_function(self, ref, finalizing=sys.is_finalizing) -> None:
+        """A function's weak reference died: its entries go (collect),
+        unless the interpreter is shutting down (torch may be gone, and
+        the process's memory goes back with it)."""
+        if finalizing():
+            return
+        self.dropped.append(ref)
+        self.collect()
+
+    def collect(self) -> None:
+        """Release the entries of dropped functions, unless a capture is
+        under way or the bookkeeping is held (this runs where the
+        collector runs, inside either): then the capture's end or the
+        next lookup does it."""
+        if not self.capturing.acquire(blocking=False):
+            return
+        try:
+            if self.busy or not self.lock.acquire(blocking=False):
+                return
+            try:
+                refs, self.dropped = self.dropped, []
+                victims = [self.order.pop(k) for k in list(self.order)
+                           if any(k[0] is r for r in refs)]
+            finally:
+                self.lock.release()
+            self._release(victims)
+        finally:
+            self.capturing.release()
+
+    def resident(self) -> int:
+        """The bytes the live entries' captures left reserved."""
+        return sum(e.resident for e in list(self.order.values()))
+
+    def _make_room(self, need: int) -> None:
+        """Evict least recently used entries until `need` bytes are free:
+        chosen by their resident bytes against one reading of what is
+        free, then read again (a pool may hand back less than its entry's
+        resident bytes)."""
+        free = self.memory.free()
+        while free < need and self.order:
+            with self.lock:
+                keys, freed = [], 0
+                for key, entry in self.order.items():
+                    if free + freed >= need:
+                        break
+                    keys.append(key)
+                    freed += entry.resident
+                victims = self._pop(keys)
+            self._release(victims)
+            free = self.memory.free()
+
+    def captured(self, prepare, record, owner, size: int):
+        """Under `capturing`: prepare() (the static copies and the
+        warm-up), then record(its result) (the capture, which returns the
+        Entry), with the entry's resident bytes set: what the capture left
+        reserved and the static inputs.  With memory to hold to, a
+        prepare() that runs out of memory runs again after evicting until
+        what owner's last capture needed, per byte of its inputs, is free
+        for this capture's `size` input bytes, or, where that is free
+        already or owner has not captured yet, the least recently used
+        entry (raising once nothing is left to evict).  Before record()
+        entries are evicted until what prepare() held at its peak is free
+        (at least one call's pool: a capture holds what the first warm-up
+        call reserved), and after it until the outputs' bytes are, for the
+        first replay's copies of them (on a full card the allocator
+        recycles the warm-up's cache, so its peak can fall short of a
+        capture and a replay)."""
+        if self.memory is None:
+            return record(prepare())
+        while True:
+            try:
+                prepared, need = self.memory.peak(prepare)
+                break
+            except torch.OutOfMemoryError:
+                if not self.order:
+                    raise
+            # Out of the except clause: the failed warm-up's tensors are
+            # gone.
+            self.retries += 1
+            guess = int(owner.need_per_byte * size)
+            if guess > self.memory.free():
+                self._make_room(guess)
+            else:
+                with self.lock:
+                    victims = self._pop([next(iter(self.order))])
+                self._release(victims)
+        if size:
+            owner.need_per_byte = need / size
+        self._make_room(need)
+        before = self.memory.reserved()
+        entry = record(prepared)
+        entry.resident = (self.memory.reserved() - before
+                          + nbytes(entry.inputs))
+        self._make_room(nbytes(entry.outputs))
+        return entry
+
+
+_registries: dict = {}
+_registries_lock = threading.Lock()
+
+
+def registry_for(device: torch.device) -> Registry:
+    """The registry of a CUDA device: one per device and process, as the
+    device's memory is."""
+    with _registries_lock:
+        if device not in _registries:
+            _registries[device] = Registry(CardMemory(device))
+        return _registries[device]
 
 
 class Capture:
@@ -166,8 +435,9 @@ class Capture:
 class Entry:
     """One captured signature: its static input tensors, its graph, the
     static outputs in the graph's pool, what one replay adds to the
-    counters (launches, and collectives in their map), and the event
-    that marks the end of its last use."""
+    counters (launches, and collectives in their map), the event that
+    marks the end of its last use, and the bytes its capture left
+    reserved (set by its registry)."""
 
     def __init__(self, inputs: list, graph, outputs, launches: dict,
                  done=None):
@@ -177,7 +447,9 @@ class Entry:
         self.launches = launches
         self.done = done
         self.waits = []      # events the next replay waits for
-        self.lock = threading.Lock()
+        self.resident = 0
+        # Reentrant: a call holds it from the lookup through the replay.
+        self.lock = threading.RLock()
 
     def _replay(self, tensors: list, stream) -> None:
         """Under the lock: wait for the last use's end (on `stream`, the
@@ -209,15 +481,25 @@ class Entry:
                 t.zero_()
 
     def release(self) -> None:
-        """Wait until the last use is done, so its pool can be freed."""
+        """Evicted: under the lock (a replay on another thread ends
+        first), wait until the last use is done, zero what scrub zeroes
+        and let the card finish that, then drop the graph and the static
+        tensors, so that the pool can be freed."""
         with self.lock:
             for event in self.waits:
                 event.synchronize()
+            self.waits = []
+            self.scrub()
+            for device in {t.device for t in self.inputs if t.is_cuda}:
+                torch.cuda.synchronize(device)
+            self.graph = self.outputs = None
+            self.inputs = []
 
 
 class _Compiled:
-    """What Graphed and Chain share: the device, the Capture, and the LRU
-    of entries by signature."""
+    """What Graphed and Chain share: the device, the Capture, the entries
+    by signature (`entries`) and the device's registry, which orders them
+    and holds them to the card's memory."""
 
     def __init__(self, device, max_entries: int = MAX_ENTRIES):
         device = torch.device(device)
@@ -229,8 +511,22 @@ class _Compiled:
         self.device = device
         self.capturer = Capture(device)
         self.max_entries = max_entries
-        self.entries: OrderedDict = OrderedDict()
-        self._lock = threading.Lock()
+        self.entries: dict = {}
+        # Its last capture's warm-up peak per byte of its inputs.
+        self.need_per_byte = 0.0
+        self.registry = (registry_for(device) if device.type == "cuda"
+                         else Registry())
+
+    @property
+    def registry(self) -> Registry:
+        return self._registry
+
+    @registry.setter
+    def registry(self, registry: Registry) -> None:
+        """Set before the first entry: `ref`, this function's key in the
+        registry, tells it when the function is dropped."""
+        self._registry = registry
+        self.ref = weakref.ref(self, registry.dropped_function)
 
     def _check_devices(self, tensors: list) -> None:
         others = {t.device for t in tensors} - {self.device}
@@ -239,23 +535,41 @@ class _Compiled:
                              f"the function runs on {self.device}")
 
     def entry(self, sig: tuple, *capture_args):
-        """The entry of `sig`, captured (self.capture(*capture_args)) on a
-        miss; the least recently used entry beyond max_entries is
-        evicted."""
-        with self._lock:
-            entry = self.entries.get(sig)
-            if entry is None:
-                entry = self.capture(*capture_args)
-                self.entries[sig] = entry
-                while len(self.entries) > self.max_entries:
-                    self.entries.popitem(last=False)[1].release()
-            else:
-                self.entries.move_to_end(sig)
+        """The entry of `sig`, captured (self.capture(*capture_args)) and
+        registered on a miss (see Registry.capture)."""
+        entry = self.registry.lookup(self, sig)
+        if entry is None:
+            entry = self.registry.miss(
+                self, sig, partial(self.capture, *capture_args))
         return entry
+
+    def locked(self, sig: tuple, *capture_args):
+        """The entry of `sig` (see entry) with its lock taken, for the
+        caller to release; looked up again if it was evicted before its
+        lock was taken."""
+        while True:
+            entry = self.entry(sig, *capture_args)
+            entry.lock.acquire()
+            if entry.graph is not None:
+                return entry
+            entry.lock.release()
+
+    @contextmanager
+    def use(self, sig: tuple, *capture_args):
+        """The entry of `sig` with its lock held (see locked)."""
+        entry = self.locked(sig, *capture_args)
+        try:
+            yield entry
+        finally:
+            entry.lock.release()
+
+    def clear(self) -> None:
+        """Evict every entry of this function (zeroed, then dropped)."""
+        self.registry.evict(self)
 
     def scrub(self) -> None:
         """Zero the static tensors of every entry (its scrub)."""
-        with self._lock:
+        with self.registry.lock:
             entries = list(self.entries.values())
         for entry in entries:
             entry.scrub()
@@ -274,19 +588,30 @@ class Graphed(_Compiled):
             return self.fn(*args, **kwargs)
         tensors = tensors_of(args, kwargs)
         self._check_devices(tensors)
-        entry = self.entry(signature(args, kwargs), args, kwargs)
-        return entry.replay(tensors, torch.cuda.current_stream(self.device))
+        entry = self.locked(signature(args, kwargs), args, kwargs)
+        try:
+            return entry.replay(tensors,
+                                torch.cuda.current_stream(self.device))
+        finally:
+            entry.lock.release()
 
     def capture(self, args: tuple, kwargs: dict) -> Entry:
         """Warm fn up on static copies of the tensor arguments, then
-        capture one call of it."""
-        s_args = tuple(_static(a) for a in args)
-        s_kwargs = {k: _static(v) for k, v in kwargs.items()}
-        run = partial(self.fn, *s_args, **s_kwargs)
-        self.capturer.warm_up(run)
-        graph, outputs, launches = self.capturer.record(run)
-        return Entry(tensors_of(s_args, s_kwargs), graph, outputs, launches,
-                     self.capturer.event())
+        capture one call of it, the room made by the registry."""
+        def prepare():
+            s_args = tuple(_static(a) for a in args)
+            s_kwargs = {k: _static(v) for k, v in kwargs.items()}
+            self.capturer.warm_up(partial(self.fn, *s_args, **s_kwargs))
+            return s_args, s_kwargs
+
+        def record(static):
+            s_args, s_kwargs = static
+            graph, outputs, launches = self.capturer.record(
+                partial(self.fn, *s_args, **s_kwargs))
+            return Entry(tensors_of(s_args, s_kwargs), graph, outputs,
+                         launches, self.capturer.event())
+        return self.registry.captured(prepare, record, self,
+                                      nbytes((args, kwargs)))
 
 
 def graphed(fn, device) -> Graphed:
@@ -302,6 +627,21 @@ def eager_chain(prologue, step, nsteps: int, args: tuple):
     for j in range(nsteps):
         carry, out = step(j, carry)
         yield out
+
+
+def run_chain(prologue, step, args: tuple, events: list):
+    """The chain run as it is, events[j] (if not None) recorded at the end
+    of step j: (every step's outputs, the last carry).  A Chain captures
+    it with its prologue and step only, so that nothing captured refers
+    to the Chain."""
+    carry = prologue(*args)
+    outs = []
+    for j, event in enumerate(events):
+        carry, out = step(j, carry)
+        outs.append(out)
+        if event is not None:
+            event.record()
+    return outs, carry
 
 
 class ChainEntry(Entry):
@@ -337,6 +677,11 @@ class ChainEntry(Entry):
             map_tensors((self.inputs, self.carry, self.outputs),
                         torch.Tensor.zero_)
 
+    def release(self) -> None:
+        with self.lock:
+            super().release()
+            self.carry = None
+
 
 class Chain(_Compiled):
     """prologue and step (see eager_chain) compiled as one graph per input
@@ -360,30 +705,27 @@ class Chain(_Compiled):
             return
         tensors = tensors_of(args, {})
         self._check_devices(tensors)
-        entry = self.entry(signature(args, {}), args)
-        yield from entry.run(tensors, start,
-                             torch.cuda.current_stream(self.device))
-
-    def _run(self, args: tuple, events: list):
-        """The chain run as it is, events[j] (if not None) recorded at the
-        end of step j: (every step's outputs, the last carry)."""
-        carry = self.prologue(*args)
-        outs = []
-        for j, event in enumerate(events):
-            carry, out = self.step(j, carry)
-            outs.append(out)
-            if event is not None:
-                event.record()
-        return outs, carry
+        with self.use(signature(args, {}), args) as entry:
+            items = entry.run(tensors, start,
+                              torch.cuda.current_stream(self.device))
+        yield from items
 
     def capture(self, args: tuple) -> ChainEntry:
         """Warm the chain up on static copies of the tensor arguments,
-        then capture it whole, an event after each step."""
+        then capture it whole, an event after each step, the room made by
+        the registry."""
         cap = self.capturer
-        s_args = tuple(_static(a) for a in args)
-        cap.warm_up(partial(self._run, s_args, [None] * self.nsteps))
-        events = [cap.step_event() for _ in range(self.nsteps)]
-        graph, (outs, carry), launches = cap.record(
-            partial(self._run, s_args, events))
-        return ChainEntry(tensors_of(s_args, {}), graph, outs, launches,
-                          events, carry)
+
+        def prepare():
+            s_args = tuple(_static(a) for a in args)
+            cap.warm_up(partial(run_chain, self.prologue, self.step, s_args,
+                                [None] * self.nsteps))
+            return s_args
+
+        def record(s_args):
+            events = [cap.step_event() for _ in range(self.nsteps)]
+            graph, (outs, carry), launches = cap.record(
+                partial(run_chain, self.prologue, self.step, s_args, events))
+            return ChainEntry(tensors_of(s_args, {}), graph, outs, launches,
+                              events, carry)
+        return self.registry.captured(prepare, record, self, nbytes(args))
