@@ -48,8 +48,9 @@ line each:
    ``SymEncryptor``, the sent bytes on 16 messages, the seed-only blobs
    through ``expand_c1`` and ``decrypt_batch``, ``se_decrypt_decode``) and
    asym from a pk directory written by ``io.serialize`` (golden rows);
-   the compiled streams (``graphs.Chain``: the prologue and every limb as
-   one graph with an event per limb, one entry per signature) through
+   the compiled streams (``graphs.Chain``: the prologue's graph and one
+   a limb in one pool, the limbs written into a ring of two slots, an
+   event after each limb, one entry per signature) through
    ``sym_encrypt_stream`` forward and reverse and ``asym_encrypt_stream``:
    the first call's capture and the memory it leaves reserved, every limb
    equal to the eager stream's and the batch's, launches per stream equal
@@ -63,7 +64,7 @@ line each:
    batch; ``se_encrypt_streaming`` sym and asym twice each, the second call
    replaying the context's cached stream, and ``se_cleanup`` zeroing the
    stream's copy of the key; the compiled sym stream at n = 16384, L = 13,
-   B = 64 (one graph of 13 limb events, KE's 2-CTA clusters in its
+   B = 64 (13 limb graphs and events, KE's 2-CTA clusters in its
    prologue), golden rows limb by limb, a second call that captures
    nothing; the adapter's CRT verify of two of the card's
    ciphertexts, whole and with one coefficient of prime 2 flipped;
@@ -157,8 +158,12 @@ line each:
    signature's resident bytes and footprint, their sum, what the registry
    kept; (c) the compiled sym stream at 16384/13, B = 1024, and the asym
    one at B = 512, golden limb by limb at both ends and every limb equal
-   to the fused batch's, the pool, the footprint and the streamed ms
-   beside the batch + fetch; (d) phase 5's headline sym, every phase 8
+   to the fused batch's and the eager stream's, the pool (at most
+   ``STREAM_POOL_MIB``, beside ``EVERY_LIMB_POOL_MIB``), the footprint
+   and the streamed ms beside the batch + fetch, and the sym stream's
+   pool at L = 3 on the same inputs within ``RING_GAP_MIB`` of its pool
+   at L = 13 (its limbs equal to the eager stream's); (d) phase 5's
+   headline sym, every phase 8
    factory and every phase 9 batch again, captured again where evicted,
    golden or equal to their eager modules, and the whole call of a live
    entry within 0.05 ms of the call as it was before the registry
@@ -1124,6 +1129,9 @@ def phase_streams(dev, smi, parms, args, ainputs):
             return list(compiled(*inputs)), (time.perf_counter() - t0) * 1e3
         (limbs, first_ms), resident = pool_resident(first)
         entry, = cached.chain.entries.values()
+        if len(entry.outputs) != graphs.RING_SLOTS:
+            raise AssertionError(f"{name}: {len(entry.outputs)} limb slots, "
+                                 f"not {graphs.RING_SLOTS}")
         out, _, batch_peak = peak_run(batch)
         want = [out[k].cpu() for k in ("c0", "c1")]
         del out
@@ -1163,8 +1171,9 @@ def phase_streams(dev, smi, parms, args, ainputs):
         del limbs, want
         mib = 2 ** 20
         print(f"[5b stream] {tag} n={N} L={L} B={B}: compiled through "
-              f"the public entry point (one graph of {len(entry.events)} "
-              f"limb events, one entry) every "
+              f"the public entry point ({len(entry.graph.steps)} limb "
+              f"graphs in one pool, {len(entry.outputs)} limb slots, one "
+              f"entry) every "
               f"limb equal to the eager stream's and the batch's, also "
               f"after a stream abandoned after its first limb, no capture "
               f"after the first call; launches per stream "
@@ -1419,7 +1428,7 @@ def phase_deep_stream(dev, smi):
     limbs, counts, _ = counted_run(lambda: list(compiled(*args)))
     check_limbs(limbs, *want, walk, "compiled deep stream, second call")
     if list(compiled.chain.entries.values()) != [entry] or len(
-            entry.events) != DEEP_L:
+            entry.graph.steps) != DEEP_L:
         raise AssertionError("deep stream: the second call captured again")
     if counts != eager_counts:
         raise AssertionError(f"deep stream: launches {counts}, eager "
@@ -1429,7 +1438,8 @@ def phase_deep_stream(dev, smi):
          lambda: list(stream.sym_stream_with(enc, *args))], DEEP_ROUNDS)
     del limbs, want
     print(f"[5b deep] compiled sym stream n={DEEP_N} L={DEEP_L} B={DEEP_B}:"
-          f" one graph of {len(entry.events)} limb events, one entry, "
+          f" {len(entry.graph.steps)} limb graphs and "
+          f"{len(entry.outputs)} limb slots, one entry, "
           f"golden_sym_{DEEP_N}_{DEEP_L}.npz rows 0..{G - 1} bit-exact limb "
           f"by limb, every limb equal to the eager stream's and "
           f"SymEncryptor's, the second call captured nothing; launches "
@@ -2766,6 +2776,14 @@ MEMORY_STREAM_B = {"sym": 1024, "asym": 512}
 MEMORY_PAIRS = 30
 MEMORY_TOUCHES = 1000
 MIB = 2 ** 20
+# (c): the streams' pools when they held every limb's outputs, on an
+# H100 80GB HBM3 at 700 W; the most a ring of two limb slots may hold;
+# the short chain the sym pool is held against at the same n and B, and
+# how far the two pools may differ (a limb at B = 1024 is 128 MiB).
+EVERY_LIMB_POOL_MIB = {"sym": 2600.4, "asym": 1273.3}
+STREAM_POOL_MIB = {"sym": 1350, "asym": 700}
+RING_L = 3
+RING_GAP_MIB = 32
 
 
 def entry_name(owner, sig) -> str:
@@ -2901,15 +2919,52 @@ def memory_signatures(dev, smi, reg, card):
     return top
 
 
+def check_same_limbs(got, want, name):
+    """Two streams' limb dicts: the same primes in the same order, c0
+    and c1 bit-equal."""
+    if [l["prime_idx"] for l in got] != [l["prime_idx"] for l in want]:
+        raise AssertionError(f"{name}: limbs in another order")
+    for g, w in zip(got, want):
+        for key in ("c0", "c1"):
+            if not np.array_equal(g[key], w[key]):
+                raise AssertionError(f"{name}: prime {g['prime_idx']} {key} "
+                                     "differs from the eager stream")
+
+
+def memory_ring_gap(dev, smi, args, pool):
+    """(c): the compiled sym stream at MEMORY_N, L = RING_L on the inputs
+    of the L = MEMORY_L one, whose pool holds `pool` bytes: every limb
+    equal to the eager stream's, and its pool within RING_GAP_MIB of
+    `pool` (the ring does not grow with the chain)."""
+    parms = default_parms(MEMORY_N, RING_L)
+    cached = stream.sym_stream(parms, "forward", dev)
+    cached.chain.clear()
+    limbs = list(stream.sym_encrypt_stream(*args, parms))
+    entry, = cached.chain.entries.values()
+    check_same_limbs(limbs, list(stream.sym_stream_with(
+        SymEncryptor(parms, dev), *args)), f"memory (c) sym L={RING_L}")
+    gap = pool - entry.resident
+    print(f"[12 memory] (c) compiled sym stream n={MEMORY_N} L={RING_L} "
+          f"B={args[0].shape[0]} on the same inputs: every limb equal to the"
+          f" eager stream's; pool resident {entry.resident / MIB:.1f} MiB "
+          f"against {pool / MIB:.1f} at L={MEMORY_L}, {gap / MIB:.1f} MiB "
+          f"apart (at most {RING_GAP_MIB}); {smi}")
+    if abs(gap) > RING_GAP_MIB * MIB:
+        raise AssertionError(f"memory (c): the sym stream's pool at L="
+                             f"{MEMORY_L} and L={RING_L} differ by {gap} B")
+    cached.chain.clear()
+
+
 def memory_streams(dev, smi):
     """(c): the compiled sym stream at 16384/13, B=1024, and the asym one
     at B=512 (pk from gen_pk_batch), through their public entry points:
     the golden rows at both ends limb by limb, every limb against the
-    compiled fused factory's batch (golden at both ends), a replay equal;
-    the pool's resident bytes (the registry's), the footprint, the
-    streamed ms beside the compiled batch + fetch.  Returns the launch
-    counts of one replayed stream of each with the kernels its path must
-    launch."""
+    compiled fused factory's batch (golden at both ends) and the eager
+    stream's, a replay equal; the pool's resident bytes (the registry's;
+    at most STREAM_POOL_MIB), the footprint, the streamed ms beside the
+    compiled batch + fetch; then the sym pool against the L = RING_L
+    one's (memory_ring_gap).  Returns the launch counts of one replayed
+    stream of each with the kernels its path must launch."""
     parms = default_parms(MEMORY_N, MEMORY_L)
     walk = list(range(MEMORY_L))
     runs = {}
@@ -2925,6 +2980,10 @@ def memory_streams(dev, smi):
 
             def streamed():
                 return list(stream.sym_encrypt_stream(*args, parms))
+
+            def eager():
+                return list(stream.sym_stream_with(SymEncryptor(parms, dev),
+                                                   *args))
         else:
             pk = golden_pk(gold, parms, dev)
             check_pk(pk, gold, name)
@@ -2935,6 +2994,10 @@ def memory_streams(dev, smi):
 
             def streamed():
                 return list(stream.asym_encrypt_stream(v, *pk, s, parms))
+
+            def eager():
+                return list(stream.asym_stream_with(
+                    AsymEncryptor(parms, *pk, dev), v, s))
         cached.chain.clear()
         limbs, first_ms, _ = timed_call(streamed, ())
         entry, = cached.chain.entries.values()
@@ -2952,7 +3015,10 @@ def memory_streams(dev, smi):
         limbs, counts, peak = peak_run(streamed)
         runs[name] = (counts, SYM_PATH if kind == "sym" else ASYM_PATH)
         check_limbs(limbs, *want, walk, f"{name}, replayed")
+        check_same_limbs(limbs, eager(), name)
         del limbs, want
+        if len(entry.outputs) != graphs.RING_SLOTS:
+            raise AssertionError(f"{name}: {len(entry.outputs)} limb slots")
         g = compiled_of(fn)
         batch_resident = next(e.resident for e in g.entries.values()
                               if e.inputs[0].shape[0] == batch)
@@ -2964,7 +3030,10 @@ def memory_streams(dev, smi):
               f"{batch - 1} golden_{kind}_{MEMORY_N}_{MEMORY_L}.npz limb by "
               f"limb, every limb equal to the compiled fused batch's (golden "
               f"at both ends), a replay equal; first call {first_ms:.1f} ms;"
-              f" pool resident {entry.resident / MIB:.1f} MiB, footprint "
+              f" pool resident {entry.resident / MIB:.1f} MiB (at most "
+              f"{STREAM_POOL_MIB[kind]}; {EVERY_LIMB_POOL_MIB[kind]} when it "
+              f"held every limb), {len(entry.outputs)} limb slots; every "
+              f"limb equal to the eager stream's; footprint "
               f"{(entry.resident + peak) / MIB:.1f} MiB (+ {peak / MIB:.1f}"
               f" peak above the inputs) vs compiled batch + fetch "
               f"{(batch_resident + batch_peak) / MIB:.1f} "
@@ -2973,6 +3042,11 @@ def memory_streams(dev, smi):
               f"{batch_ms:.3f} ms (host clock to the last limb in host "
               f"memory, medians of {DEEP_ROUNDS} rotated rounds); launches "
               f"{sum(counts.values())}; {smi}")
+        if entry.resident > STREAM_POOL_MIB[kind] * MIB:
+            raise AssertionError(f"{name}: pool {entry.resident} B, above "
+                                 f"{STREAM_POOL_MIB[kind]} MiB")
+        if kind == "sym":
+            memory_ring_gap(dev, smi, args, entry.resident)
     return runs
 
 

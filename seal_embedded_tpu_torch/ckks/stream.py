@@ -17,27 +17,31 @@ the port's kernels at (1, B, n):
   key on with them; each limb runs KA on its row with that key.
 
 The prologue and the steps run as a ``graphs.Chain``: on the card the
-first call of an input signature captures the prologue and every limb's
-step as one graph, with an event at the end of each limb, and every call
-replays it, the counterpart of the JAX package's jitted per-limb step.
-The compiled streams are cached per (parms, order, device)
+first call of an input signature captures the prologue's graph and one
+graph per limb's step into one memory pool, each step writing its limb
+into one of ``graphs.RING_SLOTS`` (two) slots in turn, and every call
+replays them, the counterpart of the JAX package's jitted per-limb
+step.  The compiled streams are cached per (parms, order, device)
 (``sym_stream``, ``asym_stream``), the counterpart of its
 ``lru_cache(maxsize=16)`` on ``_limb_step`` and ``_asym_init``.
 ``sym_stream_with`` and ``asym_stream_with`` run the same steps eagerly
 on a prebuilt encryptor.
 
 The host fetches limb i while the device computes limb i+1.  JAX got
-that overlap from asynchronous dispatch; here limb i's copies to pinned
-host memory run on a side stream after the event limb i recorded (in
-the graph, or on the caller's stream when eager).  A compiled stream
-queues every limb's copies right after its replay; an eager one queues
-limb i's once limb i+1 is queued.  The host waits on that limb's copy
-event only, never on the compute stream.  c0 and c1 travel as int32
-(every prime is below 2^31), with the ok flags in the same copy, and are
-viewed as uint32 on the host.  Each limb lands in pinned buffers of its
-own, so a yielded array is never overwritten by a later limb.  On CPU
-tensors the same steps run the kernels' plain versions and the limbs are
-yielded as computed.
+that overlap from asynchronous dispatch, and bounded the device's share
+by keeping two limbs in flight; here limb i's copies to pinned host
+memory run on a side stream after the event limb i recorded on the
+compute stream.  A compiled stream queues every limb's copies at its
+first next(), each right after its limb's graph, and the card waits for
+limb i's copies before limb i+2 writes the same slot (never the host):
+the card holds two limbs whatever the chain's length.  An eager one
+queues limb i's copies once limb i+1 is queued.  The host waits on that
+limb's copy event only, never on the compute stream.  c0 and c1 travel
+as int32 (every prime is below 2^31), with the ok flags in the same
+copy, and are viewed as uint32 on the host.  Each limb lands in pinned
+buffers of its own, so a yielded array is never overwritten by a later
+limb.  On CPU tensors the same steps run the kernels' plain versions
+and the limbs are yielded as computed.
 
 Bit-exact with the limb-scan pipeline (same sampler counter chaining).
 """
@@ -82,7 +86,7 @@ class _HostFetch:
     def start(self, prime_idx, q, parts, ready=None):
         """Queue one limb's copy; returns the pending item, its copy event
         last.  parts: c0, c1 int32 (B, n) and ok (B,) bool; ready: the
-        event that ends them in a graph (they live in its pool), None for
+        event that ends them in a compiled stream's ring slot, None for
         tensors just made on the compute stream."""
         if self.copy_stream is None:
             return prime_idx, q, parts, None
@@ -140,10 +144,15 @@ def _pipeline(outs, walk, device: torch.device) -> Iterator[dict]:
         yield _fetch(pending.pop(0))
 
 
-def _host_form(c0, c1, ok):
+def _host_form(c0, c1, ok, out=None):
     """A limb's outputs as the fetch carries them: c0, c1 (B, n) u32
-    values as int32, ok (B,) bool."""
-    return c0.to(torch.int32), c1.to(torch.int32), ok
+    values as int32, ok (B,) bool; written into `out` (a compiled
+    stream's ring slot) where it is given."""
+    if out is None:
+        return c0.to(torch.int32), c1.to(torch.int32), ok
+    for dst, src in zip(out, (c0, c1, ok)):
+        dst.copy_(src)
+    return out
 
 
 class _SymSteps:
@@ -162,11 +171,12 @@ class _SymSteps:
         counter = sp.counter_zero((values.shape[0],), values.device)
         return pte, ok, ntt_s, share_words, counter
 
-    def step(self, j, carry):
+    def step(self, j, carry, out=None):
         """Limb j of the walk: its uniform draw from the counter the limb
-        before left, then KN from pte with the c0 epilogue.  Only the
-        int32 host forms outlive the step, so each limb's draw runs with
-        less memory held than the batch's does."""
+        before left, then KN from pte with the c0 epilogue, its int32
+        host forms written into `out` where given (see graphs.eager_chain).
+        Only those outlive the step, so each limb's draw runs with less
+        memory held than the batch's does."""
         pte, ok, ntt_s, share_words, counter = carry
         enc = self.enc
         limb = slice(j, j + 1)
@@ -175,7 +185,7 @@ class _SymSteps:
             queue_cap=enc.queue_cap)
         c0 = enc.c0_from_pte(pte, a[None], ntt_s[limb], limb)
         return ((pte, ok, ntt_s, share_words, counter),
-                _host_form(c0[0], a, ok & ok_u))
+                _host_form(c0[0], a, ok & ok_u, out))
 
 class _AsymSteps:
     """The asym stream's prologue and per-limb step on an AsymEncryptor
@@ -195,16 +205,16 @@ class _AsymSteps:
         return (*self.enc.prologue(values, seed_words)[1:],
                 self.enc.key(pk0, pk1))
 
-    def step(self, j, carry):
+    def step(self, j, carry, out=None):
         pte, u, e1, ok, key = carry
         i = self.idxs[j]
         c0, c1 = self.enc.combine(u, e1, pte, slice(i, i + 1), key)
-        return carry, _host_form(c0[0], c1[0], ok)
+        return carry, _host_form(c0[0], c1[0], ok, out)
 
 
 class Stream:
     """One stream kind on one (parms, order, device): its steps compiled
-    as a graph chain.  Called with the prologue's tensors (on `device`),
+    as a graphs.Chain.  Called with the prologue's tensors (on `device`),
     it returns the iterator of limb dicts (sym_encrypt_stream's)."""
 
     def __init__(self, steps, walk, device):

@@ -52,22 +52,27 @@ its kernels.
 prologue and one step per limb (``ckks/stream.py``), the counterpart of
 the JAX package's jitted per-limb step.
 
-* **One graph per signature**: the prologue and every step, in walk
-  order, captured as one graph in one private pool, an entry of an LRU
-  of ``MAX_ENTRIES`` and of its device's registry as Graphed's: a chain
-  of 13 limbs is one entry.
-  Within the capture a step's scratch is freed before the next step
-  allocates, so the pool holds the hand-offs, every step's outputs and
-  about one step's scratch.
-* **An event per step**: the graph records an external event at the end
-  of each step, so that what reads a step's outputs (the stream's copies
-  to host memory) starts as soon as that step is done, while the card
-  runs the next.
-* **A run**: its first next() copies the inputs in, replays the graph
-  and calls ``start`` on every step's outputs and event, all under the
-  entry's lock; the next replay waits for the events ``start`` returned,
-  the end of those reads.  So a run that another follows, abandoned or
-  not, has its reads queued already, and every run sees its own inputs.
+* **Graphs in one pool per signature**: the prologue's graph and one
+  graph per step, captured in walk order into one memory pool and
+  replayed in that order, one entry of an LRU of ``MAX_ENTRIES`` and of
+  its device's registry as Graphed's (evicted and zeroed together): a
+  chain of 13 limbs is one entry.  A graph's scratch is free for the
+  next graph's capture, so the pool holds the hand-offs and about one
+  step's scratch.
+* **A ring of ``RING_SLOTS`` (K) output slots**: static tensors of the
+  entry, made outside the pool like the warm-up's last outputs; step j
+  writes its outputs into slot j mod K, so the card holds K steps'
+  outputs whatever the chain's length, as the JAX stream keeps two
+  limbs dispatched.
+* **A run**: its first next() copies the inputs in (after the last
+  run's end) and replays the graphs, and after step j records step j's
+  event and calls ``start`` on its slot and event, all under the
+  entry's lock; ``start`` queues the reads of the slot (the stream's
+  copy to host memory) and returns the event that ends them, which the
+  card waits for (``wait_event``, not the host) before a later step
+  writes that slot again, in this run or the next.  So a run that
+  another follows, abandoned or not, has its reads queued already, and
+  every run sees its own inputs.
 
 On the CPU the function runs as it is: every kernel wrapper then runs its
 plain version, and a chain runs its steps eagerly.
@@ -79,7 +84,7 @@ import copy
 import sys
 import threading
 import weakref
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from contextlib import contextmanager
 from functools import partial
 
@@ -89,6 +94,9 @@ from .ops.kernels import counters
 
 MAX_ENTRIES = 8
 WARMUP_CALLS = 2
+# A chain's output slots on the card: the JAX stream's two limbs in
+# flight, one written while the other is read.
+RING_SLOTS = 2
 
 
 def signature(args: tuple, kwargs: dict) -> tuple:
@@ -399,14 +407,18 @@ class Capture:
             current.wait_stream(side)
         return out
 
-    def graph(self, fn):
-        """(graph, fn's result): one call of fn captured into a private
-        pool."""
+    def pool(self):
+        """A memory pool that several graphs' captures share."""
+        return torch.cuda.graph_pool_handle()
+
+    def graph(self, fn, pool=None):
+        """(graph, fn's result): one call of fn captured into `pool`, or a
+        private pool."""
         with torch.cuda.device(self.device):
             # keep_graph: the captured graph stays beside its executable,
             # so that a run can count its nodes (raw_cuda_graph).
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=pool):
                 out = fn()
             graph.instantiate()
         return graph, out
@@ -415,21 +427,21 @@ class Capture:
         return torch.cuda.Event()
 
     def step_event(self):
-        """An event a capture records as a node of its graph, so that each
-        replay records it there."""
-        return torch.cuda.Event(external=True)
+        """The event a chain records on its stream after a step's graph."""
+        return torch.cuda.Event()
 
     def record(self, fn):
-        """(graph, fn's result, tallies): tallies is the change the
-        capture made to the counters and their registered maps, which are
-        then restored: a capture records, it runs nothing."""
+        """(fn's result, tallies): fn captures graphs; tallies is the
+        change those captures made to the counters and their registered
+        maps, which are then restored: a capture records, it runs
+        nothing."""
         before = counters.tallies()
         try:
-            graph, out = self.graph(fn)
+            out = fn()
             tallies = counters.tallies_since(before)
         finally:
             counters.restore(before)
-        return graph, out, tallies
+        return out, tallies
 
 
 class Entry:
@@ -451,14 +463,18 @@ class Entry:
         # Reentrant: a call holds it from the lookup through the replay.
         self.lock = threading.RLock()
 
-    def _replay(self, tensors: list, stream) -> None:
+    def _copy_in(self, tensors: list, stream) -> None:
         """Under the lock: wait for the last use's end (on `stream`, the
-        caller's current stream), copy `tensors` into the static inputs,
-        replay and count."""
+        caller's current stream), then copy `tensors` into the static
+        inputs."""
         for event in self.waits:
             stream.wait_event(event)
         for dst, src in zip(self.inputs, tensors):
             dst.copy_(src)
+
+    def _replay(self, tensors: list, stream) -> None:
+        """Under the lock: copy in (_copy_in), replay and count."""
+        self._copy_in(tensors, stream)
         self.graph.replay()
         counters.add(self.launches)
 
@@ -606,8 +622,8 @@ class Graphed(_Compiled):
 
         def record(static):
             s_args, s_kwargs = static
-            graph, outputs, launches = self.capturer.record(
-                partial(self.fn, *s_args, **s_kwargs))
+            (graph, outputs), launches = self.capturer.record(partial(
+                self.capturer.graph, partial(self.fn, *s_args, **s_kwargs)))
             return Entry(tensors_of(s_args, s_kwargs), graph, outputs,
                          launches, self.capturer.event())
         return self.registry.captured(prepare, record, self,
@@ -622,58 +638,96 @@ def graphed(fn, device) -> Graphed:
 def eager_chain(prologue, step, nsteps: int, args: tuple):
     """The chain run as it is: carry = prologue(*args), then for each j
     carry, out = step(j, carry), yielding out.  Nothing runs before the
-    first next()."""
+    first next().  A step is step(j, carry, out=None): given `out` (a
+    ring slot, on the card) it writes its outputs into those tensors and
+    returns them."""
     carry = prologue(*args)
     for j in range(nsteps):
         carry, out = step(j, carry)
         yield out
 
 
-def run_chain(prologue, step, args: tuple, events: list):
-    """The chain run as it is, events[j] (if not None) recorded at the end
-    of step j: (every step's outputs, the last carry).  A Chain captures
-    it with its prologue and step only, so that nothing captured refers
-    to the Chain."""
-    carry = prologue(*args)
-    outs = []
-    for j, event in enumerate(events):
-        carry, out = step(j, carry)
-        outs.append(out)
-        if event is not None:
-            event.record()
-    return outs, carry
+def last_output(prologue, step, nsteps: int, args: tuple):
+    """The chain run as it is, each step's outputs dropped once the next
+    step has made its own: the last step's outputs."""
+    return deque(eager_chain(prologue, step, nsteps, args), maxlen=1)[0]
+
+
+class ChainGraphs:
+    """The graphs of one signature of a Chain, captured into one memory
+    pool and replayed in this order: the prologue's, then one a step.
+    They are dropped together."""
+
+    def __init__(self, prologue, steps: list):
+        self.prologue = prologue
+        self.steps = steps
+
+
+def capture_chain(cap, prologue, step, args: tuple, slots: list,
+                  nsteps: int):
+    """(ChainGraphs, the last carry): prologue(*args), then step j on the
+    carry the step before handed on, writing into slots[j % len(slots)],
+    each captured by `cap` as a graph of one shared pool.  A Chain
+    captures it with its prologue and step only, so that nothing captured
+    refers to the Chain."""
+    pool = cap.pool()
+    first, carry = cap.graph(partial(prologue, *args), pool)
+    steps = []
+    for j in range(nsteps):
+        graph, (carry, _) = cap.graph(
+            partial(step, j, carry, slots[j % len(slots)]), pool)
+        steps.append(graph)
+    return ChainGraphs(first, steps), carry
 
 
 class ChainEntry(Entry):
-    """One captured signature of a Chain: an Entry whose outputs are
-    every step's, in the graph's pool, whose graph records events[j] at
-    the end of step j, and which keeps the last hand-offs (`carry`, ntt(s)
-    or the key among them) to zero them in scrub."""
+    """One captured signature of a Chain: an Entry whose graph is a
+    ChainGraphs and whose outputs are the ring's slots (a tuple of static
+    tensors each), which records events[j] after step j and keeps the
+    last hand-offs (`carry`, ntt(s) or the key among them) to zero them
+    in scrub.  pending[k] ends the reads of slot k queued last (None: no
+    read is queued); `waits` holds `done`, recorded after a run's last
+    step, for the next run's stream."""
 
-    def __init__(self, inputs: list, graph, outputs: list, launches: dict,
-                 events: list, carry):
-        super().__init__(inputs, graph, outputs, launches)
+    def __init__(self, inputs: list, graph: ChainGraphs, outputs: list,
+                 launches: dict, events: list, carry, done=None):
+        super().__init__(inputs, graph, outputs, launches, done)
         self.events = events
         self.carry = carry
+        self.pending = [None] * len(outputs)
 
     def run(self, tensors: list, start, stream=None) -> list:
-        """Replay the chain on `tensors`, then start(j, outputs of step j,
-        events[j]) for every step, under the lock: each returns (item,
-        the event that ends its reads of the outputs, or None), and the
-        next replay waits for those events.  Returns the items."""
+        """Copy `tensors` in and replay the chain on `stream`, under the
+        lock.  Before step j the stream waits for the pending reads of its
+        slot; after it, it records events[j], and start(j, the slot,
+        events[j]) queues the slot's reads and returns (item, the event
+        that ends them, or None).  Returns the items."""
         with self.lock:
-            self._replay(tensors, stream)
-            started = [start(j, out, event) for j, (out, event)
-                       in enumerate(zip(self.outputs, self.events))]
-            self.waits = [e for _, e in started if e is not None]
-        return [item for item, _ in started]
+            self._copy_in(tensors, stream)
+            self.graph.prologue.replay()
+            items = []
+            for j, (graph, event) in enumerate(zip(self.graph.steps,
+                                                   self.events)):
+                k = j % len(self.outputs)
+                if self.pending[k] is not None:
+                    stream.wait_event(self.pending[k])
+                graph.replay()
+                event.record(stream)
+                item, self.pending[k] = start(j, self.outputs[k], event)
+                items.append(item)
+            counters.add(self.launches)
+            if self.done is not None:
+                self.done.record(stream)
+                self.waits = [self.done]
+        return items
 
     def scrub(self) -> None:
-        """Zero the static inputs, the last hand-offs and the outputs,
-        once the last run's reads of the outputs are done."""
+        """Zero the static inputs, the last hand-offs and the slots, once
+        the last run and the reads of the slots are done."""
         with self.lock:
-            for event in self.waits:
-                event.synchronize()
+            for event in (*self.waits, *self.pending):
+                if event is not None:
+                    event.synchronize()
             map_tensors((self.inputs, self.carry, self.outputs),
                         torch.Tensor.zero_)
 
@@ -681,15 +735,17 @@ class ChainEntry(Entry):
         with self.lock:
             super().release()
             self.carry = None
+            self.pending = []
 
 
 class Chain(_Compiled):
-    """prologue and step (see eager_chain) compiled as one graph per input
-    signature on `device` (see the module); every step's outputs are a
-    tuple of tensors.  Called as chain(args, start), it returns a
-    generator of start's items, one per step (see ChainEntry.run); on
-    the CPU each step runs when it is reached, its event None.
-    `entries` maps each live signature to its ChainEntry."""
+    """prologue and step (see eager_chain) compiled per input signature
+    on `device` as a ChainEntry (see the module); every step's outputs
+    are a tuple of tensors, of the same shapes at every step.  Called as
+    chain(args, start), it returns a generator of start's items, one per
+    step (see ChainEntry.run); on the CPU each step runs when it is
+    reached, its outputs its own, its event None.  `entries` maps each
+    live signature to its ChainEntry."""
 
     def __init__(self, prologue, step, nsteps: int, device):
         super().__init__(device)
@@ -712,20 +768,26 @@ class Chain(_Compiled):
 
     def capture(self, args: tuple) -> ChainEntry:
         """Warm the chain up on static copies of the tensor arguments,
-        then capture it whole, an event after each step, the room made by
-        the registry."""
+        then capture it graph by graph into one pool (capture_chain), its
+        steps writing into RING_SLOTS slots made like the warm-up's last
+        outputs, the room made by the registry."""
         cap = self.capturer
 
         def prepare():
             s_args = tuple(_static(a) for a in args)
-            cap.warm_up(partial(run_chain, self.prologue, self.step, s_args,
-                                [None] * self.nsteps))
-            return s_args
+            last = cap.warm_up(partial(last_output, self.prologue, self.step,
+                                       self.nsteps, s_args))
+            return s_args, [(t.shape, t.dtype) for t in last]
 
-        def record(s_args):
-            events = [cap.step_event() for _ in range(self.nsteps)]
-            graph, (outs, carry), launches = cap.record(
-                partial(run_chain, self.prologue, self.step, s_args, events))
-            return ChainEntry(tensors_of(s_args, {}), graph, outs, launches,
-                              events, carry)
+        def record(static):
+            s_args, like = static
+            slots = [tuple(torch.empty(shape, dtype=dtype, device=self.device)
+                           for shape, dtype in like)
+                     for _ in range(min(RING_SLOTS, self.nsteps))]
+            (graph, carry), launches = cap.record(partial(
+                capture_chain, cap, self.prologue, self.step, s_args, slots,
+                self.nsteps))
+            return ChainEntry(tensors_of(s_args, {}), graph, slots, launches,
+                              [cap.step_event() for _ in range(self.nsteps)],
+                              carry, cap.event())
         return self.registry.captured(prepare, record, self, nbytes(args))

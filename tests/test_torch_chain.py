@@ -4,8 +4,11 @@
 graphs.py's pure-Python parts run against a recording fake of its CUDA
 side (FakeCapture): a fake graph's replay runs the captured function
 again and writes its result into the tensors the capture returned, as a
-graph writes the same addresses, and a fake step event logs where the
-graph records it.  The compiled streams run on the CPU as their entry
+graph writes the same addresses; a fake step event logs where the chain
+records it, a fake stream the events it waits for, and a fake copy of a
+ring slot (FakeCopy) reads the slot only when it is waited for, as late
+as a card may run it, so a step that wrote the slot before that wait
+shows in the copy.  The compiled streams run on the CPU as their entry
 points do there (eagerly) and through the fake capture, limb by limb
 against seal_embedded_tpu.ckks.stream's jitted streams, bit for bit.
 The capture itself needs the card (chip_smoke.py phase 5b)."""
@@ -77,29 +80,63 @@ class FakeGraph:
 
 
 class FakeEvent:
-    """A step event: logs ("event", j) where the graph records it."""
+    """A step event: logs ("event", j) where the chain records it."""
 
     def __init__(self, log, j):
         self.log, self.j = log, j
 
-    def record(self):
+    def record(self, stream=None):
         self.log.append(("event", self.j))
 
 
-class FakeStream:
-    """Logs the events a replay waits for."""
+class FakeCopy:
+    """A read of a ring slot queued on a side stream, and the event that
+    ends it: the slot is copied into `host` only when the read is waited
+    for (a stream's wait_event, synchronize, fetch), the latest a card
+    may run it.  `tag` names it in a FakeStream's log."""
 
-    def __init__(self):
+    def __init__(self, parts, tag):
+        self.parts, self.tag = parts, tag
+        self.host = tuple(torch.empty_like(t) for t in parts)
+        self.lock = threading.Lock()
+        self.done = False
+
+    def synchronize(self):
+        with self.lock:
+            if not self.done:
+                for h, t in zip(self.host, self.parts):
+                    h.copy_(t)
+                self.done = True
+
+    def fetch(self):
+        self.synchronize()
+        return self.host
+
+
+class FakeStream:
+    """Records the events a run waits for in `waited` and, given a log, as
+    ("wait", the event's tag) there; a FakeCopy waited for runs."""
+
+    def __init__(self, log=None):
         self.waited = []
+        self.log = log
 
     def wait_event(self, event):
         self.waited.append(event)
+        if self.log is not None:
+            self.log.append(("wait", getattr(event, "tag", event)))
+        if isinstance(event, FakeCopy):
+            event.synchronize()
+
+
+class FakePool:
+    """A memory pool that a chain's graphs share."""
 
 
 class FakeCapture(graphs.Capture):
-    """graphs.Capture on the CPU: warm-ups run fn, a capture runs it once
-    and logs ("capture",), a replay logs ("replay",), a step event
-    ("event", j)."""
+    """graphs.Capture on the CPU: warm-ups run fn, a shared pool logs
+    ("pool",), a capture runs fn once and logs ("capture",), a replay
+    logs ("replay",), a step event ("event", j)."""
 
     def __init__(self):
         super().__init__(CPU)
@@ -113,7 +150,11 @@ class FakeCapture(graphs.Capture):
             out = fn()
         return out
 
-    def graph(self, fn):
+    def pool(self):
+        self.log.append(("pool",))
+        return FakePool()
+
+    def graph(self, fn, pool=None):
         self.log.append(("capture",))
         out = fn()
         return FakeGraph(fn, out, self.log), out
@@ -136,16 +177,38 @@ def faked(compiled):
 
 
 def cloned(j, out, event):
-    """A start that copies a step's outputs out, as the stream's copies
-    to host memory do; no event ends the reads."""
+    """A start that copies a step's outputs out at once; no event ends
+    the reads."""
     return tuple(t.clone() for t in out), None
 
 
-def run_chain(chain, *args, start=cloned, stream=None):
+def copied(j, out, event):
+    """A start that queues a FakeCopy of step j's slot, as the stream's
+    copy to host memory; the copy ends the slot's reads."""
+    read = FakeCopy(out, j)
+    return read, read
+
+
+def run_chain(chain, *args, start=copied, stream=None):
     """What Chain.__call__ does on the card: at the first next(), the
-    entry of the signature (captured on a miss) and a run of it."""
+    entry of the signature (captured on a miss) and a run of it on
+    `stream` (by default a FakeStream logging into the capture's log);
+    a FakeCopy item is yielded as its host tensors, fetched."""
+    if stream is None:
+        stream = FakeStream(chain.capturer.log)
     entry = chain.entry(graphs.signature(args, {}), args)
-    yield from entry.run(graphs.tensors_of(args, {}), start, stream)
+    for item in entry.run(graphs.tensors_of(args, {}), start, stream):
+        yield item.fetch() if isinstance(item, FakeCopy) else item
+
+
+def into(out, parts):
+    """A step's outputs: `parts`, or, given a ring slot `out`, parts
+    written into it (graphs.eager_chain's step contract)."""
+    if out is None:
+        return parts
+    for dst, src in zip(out, parts):
+        dst.copy_(src)
+    return out
 
 
 def _toy_chain(nsteps=3, launches_per_step=0):
@@ -156,14 +219,14 @@ def _toy_chain(nsteps=3, launches_per_step=0):
     def prologue(x):
         return 2 * x, torch.zeros_like(x)
 
-    def step(j, carry):
+    def step(j, carry, out=None):
         x2, total = carry
         total = total + (j + 1)
         counters.add(dict(dict.fromkeys(counters.COUNTERS, 0),
                           ntt=launches_per_step))
-        out = x2 + total
-        comm._count("all_gather", out)
-        return (x2, total), (total.clone(), out)
+        parts = (total.clone(), x2 + total)
+        comm._count("all_gather", parts[1])
+        return (x2, total), into(out, parts)
     return faked(graphs.Chain(prologue, step, nsteps, CPU))
 
 
@@ -184,17 +247,26 @@ def _equal_outs(got, want):
 # ------------------------------------------------------------ the chain
 
 def test_chain_is_one_graph_with_an_event_per_step_replayed_whole():
+    """One signature's graphs, the prologue's and one a step, captured
+    into one pool and replayed whole at a run, an event after each step;
+    step j + 2 writes step j's ring slot only after the stream waited for
+    step j's copy, and so does step 0 or 1 of the next run for the copies
+    still pending."""
     chain = _toy_chain()
     x = torch.arange(6)
     outs = list(run_chain(chain, x))
     _equal_outs(outs, _eager_toy(x))
     cap = chain.capturer
     assert cap.warm_ups == graphs.WARMUP_CALLS
-    steps = [("event", 0), ("event", 1), ("event", 2)]
-    assert cap.log == [("capture",), *steps, ("replay",), *steps]
+    assert graphs.RING_SLOTS == 2
+    replay, event = ("replay",), [("event", j) for j in range(3)]
+    run = [replay, replay, event[0], replay, event[1], ("wait", 0), replay,
+           event[2]]
+    assert cap.log == [("pool",), *[("capture",)] * 4, *run]
     _equal_outs(list(run_chain(chain, x + 1)), _eager_toy(x + 1))
-    assert cap.log[-4:] == [("replay",), *steps]
-    assert len(cap.kinds("capture")) == 1 and len(chain.entries) == 1
+    assert cap.log[-10:] == [replay, ("wait", 2), replay, event[0],
+                             ("wait", 1), *run[3:]]
+    assert len(cap.kinds("pool")) == 1 and len(chain.entries) == 1
 
 
 def test_chain_of_13_limbs_is_one_entry():
@@ -204,12 +276,13 @@ def test_chain_of_13_limbs_is_one_entry():
         _equal_outs(list(run_chain(chain, x)), _eager_toy(x, 13))
     assert len(chain.entries) == 1
     entry, = chain.entries.values()
-    assert len(entry.outputs) == len(entry.events) == 13
-    assert len(chain.capturer.kinds("capture")) == 1
+    assert len(entry.events) == len(entry.graph.steps) == 13
+    assert len(entry.outputs) == graphs.RING_SLOTS
+    assert len(chain.capturer.kinds("pool")) == 1
     # A second signature is a second entry, not 13 more.
     list(run_chain(chain, torch.zeros(7, dtype=torch.int64)))
     assert len(chain.entries) == 2
-    assert len(chain.capturer.kinds("capture")) == 2
+    assert len(chain.capturer.kinds("pool")) == 2
 
 
 def test_chain_starts_every_step_at_the_first_next():
@@ -235,7 +308,7 @@ def test_chain_starts_every_step_at_the_first_next():
 
 def test_chain_outputs_own_their_memory():
     """An item a start copied out survives later runs, and the copies the
-    stream makes in host memory are its own (the stream's start)."""
+    stream makes in host memory are its own, not the ring's slots."""
     chain = _toy_chain()
     x = torch.arange(4)
     got = list(run_chain(chain, x))
@@ -249,17 +322,23 @@ def test_chain_outputs_own_their_memory():
 
 
 def test_next_replay_waits_for_the_reads_start_queued():
+    """The stream waits for the reads start queued of a slot before a
+    step writes it again: in the run (step 2 after read 0) and in the
+    next (steps 0 and 1 after reads 2 and 1), and for no other."""
     chain = _toy_chain()
     x = torch.arange(3)
-    list(run_chain(chain, x))
+    list(run_chain(chain, x, start=cloned))
     reads = [object() for _ in range(3)]
-    list(run_chain(chain, x, start=lambda j, out, ev: (
+    stream = FakeStream()
+    list(run_chain(chain, x, stream=stream, start=lambda j, out, ev: (
         cloned(j, out, ev)[0], reads[j])))
     entry, = chain.entries.values()
-    assert entry.waits == reads
+    assert stream.waited == reads[:1]
+    assert entry.pending == [reads[2], reads[1]]
     stream = FakeStream()
-    list(run_chain(chain, x, stream=stream))
-    assert stream.waited == reads and entry.waits == []
+    list(run_chain(chain, x, start=cloned, stream=stream))
+    assert stream.waited == [reads[2], reads[1]]
+    assert entry.pending == [None, None]
 
 
 def test_chain_adds_tallies_per_replay():
@@ -282,29 +361,37 @@ def test_chain_adds_tallies_per_replay():
 
 
 def test_abandoned_chain_leaves_the_next_run_its_own():
-    chain = _toy_chain()
+    """A run left after its first limb keeps its later limbs, read after
+    another run wrapped the ring twice; the next run sees its own, and a
+    run dropped after its first limb leaves the one after it its own."""
+    chain = _toy_chain(nsteps=5)
     cap = chain.capturer
     x, y = torch.arange(5), torch.arange(5) * 7
     abandoned = run_chain(chain, y)
-    _equal_outs([next(abandoned)], _eager_toy(y)[:1])
-    del abandoned
+    _equal_outs([next(abandoned)], _eager_toy(y, 5)[:1])
     cap.log.clear()
-    _equal_outs(list(run_chain(chain, x)), _eager_toy(x))
-    assert len(cap.kinds("replay")) == 1
+    _equal_outs(list(run_chain(chain, x)), _eager_toy(x, 5))
+    assert len(cap.kinds("replay")) == 1 + 5
+    _equal_outs(list(abandoned), _eager_toy(y, 5)[1:])
+    dropped = run_chain(chain, y)
+    next(dropped)
+    del dropped
+    _equal_outs(list(run_chain(chain, x)), _eager_toy(x, 5))
 
 
 def test_interleaved_chain_runs_keep_their_inputs():
-    """Two runs of one entry in turn: each sees its own inputs (a run's
-    reads are queued at its replay, before the other's)."""
-    chain = _toy_chain()
+    """Two runs of one entry in turn, limb by limb, over a chain that
+    wraps the ring: each sees its own inputs (a run's reads are queued at
+    its replay, and the other's steps wait for them)."""
+    chain = _toy_chain(nsteps=5)
     x, y = torch.arange(5), torch.arange(5) * 7
     a, b = run_chain(chain, x), run_chain(chain, y)
     got_a, got_b = [], []
-    for _ in range(3):
+    for _ in range(5):
         got_a.append(next(a))
         got_b.append(next(b))
-    _equal_outs(got_a, _eager_toy(x))
-    _equal_outs(got_b, _eager_toy(y))
+    _equal_outs(got_a, _eager_toy(x, 5))
+    _equal_outs(got_b, _eager_toy(y, 5))
     assert len(chain.entries) == 1
 
 
@@ -343,22 +430,29 @@ def test_chain_runs_from_many_threads_keep_their_inputs():
 
 
 def test_chain_scrub_zeroes_inputs_handoffs_and_outputs():
+    """Scrub zeroes the static input, the two hand-offs and every ring
+    slot, after the reads still pending of the slots (a run left after
+    its first limb keeps its limbs)."""
     chain = _toy_chain()
     x = torch.arange(1, 6)
     list(run_chain(chain, x))
+    left = run_chain(chain, x + 3)
+    next(left)
     chain.scrub()
     entry, = chain.entries.values()
     leaves = []
     graphs.map_tensors((entry.inputs, entry.carry, entry.outputs),
                        leaves.append)
-    assert len(leaves) == 1 + 2 + 6 and not any(bool(t.any())
-                                                for t in leaves)
+    assert len(leaves) == 1 + 2 + 2 * graphs.RING_SLOTS
+    assert not any(bool(t.any()) for t in leaves)
+    _equal_outs(list(left), _eager_toy(x + 3)[1:])
     _equal_outs(list(run_chain(chain, x)), _eager_toy(x))
 
 
 def test_chain_carries_the_sampler_counter_across_2_32_and_2_64():
     """The counter a step hands on crosses 2^32 (a carry into hi) and
-    2^64 (a wrap) as it does eagerly."""
+    2^64 (a wrap) as it does eagerly, over four steps that wrap the ring,
+    captured and replayed."""
     n, q = 64, int(jcfg.default_parms(1024, 1).moduli[0])
     seeds = torch.as_tensor(np.random.default_rng(3).integers(
         0, 2 ** 32, (2, 16)))
@@ -367,16 +461,17 @@ def test_chain_carries_the_sampler_counter_across_2_32_and_2_64():
     def prologue(seed_words, counter):
         return seed_words, counter.clone()
 
-    def step(j, carry):
+    def step(j, carry, out=None):
         seed_words, counter = carry
         a, counter, ok = sp.sample_uniform(seed_words, counter, n, q)
-        return (seed_words, counter), (a, counter.clone(), ok)
+        return (seed_words, counter), into(out, (a, counter.clone(), ok))
     chain = faked(graphs.Chain(prologue, step, 4, CPU))
-    got = list(run_chain(chain, seeds, start))
     want = list(graphs.eager_chain(prologue, step, 4, (seeds, start)))
-    _equal_outs(got, want)
-    assert int(got[-1][1][0, 1]) == 1           # carried into hi
-    assert int(got[-1][1][1, 1]) == 0           # wrapped at 2^64
+    for _ in range(2):                      # the capture, then a replay
+        got = list(run_chain(chain, seeds, start))
+        _equal_outs(got, want)
+        assert int(got[-1][1][0, 1]) == 1       # carried into hi
+        assert int(got[-1][1][1, 1]) == 0       # wrapped at 2^64
 
 
 # ------------------------------------------- graphs.py for scale-out
@@ -464,14 +559,12 @@ def _port_args(kind, n, nprimes, b=B, seed=5, key_seed=6):
 
 
 def _fetched(s):
-    """A start that does what the stream's does: one _HostFetch item a
-    limb (on the CPU, the limb's tensors themselves, copied here as the
-    card's copies to host memory would be)."""
-    fetch = tstream._HostFetch(CPU)
-
+    """A start that does what the stream's does on the card: one
+    _HostFetch item a limb, its copy of the ring slot to host memory a
+    FakeCopy, which _fetch waits for."""
     def start(j, parts, ready):
-        parts = tuple(t.clone() for t in parts)
-        return fetch.start(*s.walk[j], parts, ready), None
+        read = FakeCopy(parts, j)
+        return (*s.walk[j], read.host, read), read
     return start
 
 
@@ -503,7 +596,30 @@ def test_compiled_stream_vs_jax(kind, order, n, nprimes):
     for _ in range(2):
         _require_limbs(list(map(tstream._fetch, run_chain(
             chain, *args, start=_fetched(s)))), want)
-    assert len(chain.capturer.kinds("capture")) == 1
+    assert len(chain.capturer.kinds("pool")) == 1
+
+
+@pytest.mark.parametrize("nprimes", [3, 13])
+def test_stream_ring_holds_two_limbs_whatever_the_chain(nprimes):
+    """The compiled sym stream's limb outputs (through the fake capture)
+    are RING_SLOTS slots of one limb's int32 c0, c1 and its ok, as many
+    bytes at L = 3 as at L = 13 (n = 64, PRIMES_30BIT), and its limbs,
+    captured and replayed, are the eager stream's."""
+    b, n = 3, 64
+    P = parms_from_jax(jcfg.Parms(degree=n, moduli=jcfg.PRIMES_30BIT[:nprimes],
+                                  scale=2.0 ** 25))
+    s = tstream.sym_stream(P, "forward", "cpu")
+    args = state_to_device(*_inputs(n, 11, b), device=CPU)
+    want = [(l["prime_idx"], l["c0"], l["c1"]) for l in s(*args)]
+    chain = faked(graphs.Chain(s.chain.prologue, s.chain.step,
+                               s.chain.nsteps, CPU))
+    for _ in range(2):
+        _require_limbs(list(map(tstream._fetch, run_chain(
+            chain, *args, start=_fetched(s)))), want)
+    entry, = chain.entries.values()
+    assert len(entry.outputs) == graphs.RING_SLOTS == 2
+    assert graphs.nbytes(entry.outputs) == 2 * (2 * b * n * 4 + b)
+    assert len(entry.graph.steps) == len(entry.events) == nprimes
 
 
 def test_interleaved_asym_streams_of_two_signatures_keep_their_keys():
@@ -531,7 +647,7 @@ def test_interleaved_asym_streams_of_two_signatures_keep_their_keys():
         for limbs, want in zip(got, wants):
             _require_limbs(limbs, want)
     assert len(chain.entries) == 2
-    assert len(chain.capturer.kinds("capture")) == 2
+    assert len(chain.capturer.kinds("pool")) == 2
 
 
 @pytest.mark.parametrize("kind", ["sym", "asym"])

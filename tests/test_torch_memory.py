@@ -28,7 +28,8 @@ from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
 from seal_embedded_tpu_torch.convert import parms_from_jax, state_to_device
 from seal_embedded_tpu_torch.ops.kernels import counters
 
-from test_torch_chain import FakeCapture, _eager_toy, _toy_chain, cloned
+from test_torch_chain import (FakeCapture, FakeStream, _eager_toy,
+                              _toy_chain, cloned)
 
 torch.set_num_threads(2)
 
@@ -80,7 +81,8 @@ class CardCapture(FakeCapture):
     """FakeCapture on a FakeCard: each warm-up call's pool (`size` of its
     result, its outputs' bytes by default) is held until the next call's
     is made, so a warm-up peaks at two calls'; a captured graph holds one
-    call's pool until it is dropped."""
+    call's pool until it is dropped, a chain's graphs the pool they share
+    (`size` of the first graph's result) until the last is dropped."""
 
     def __init__(self, card, size=graphs.nbytes):
         super().__init__()
@@ -94,9 +96,14 @@ class CardCapture(FakeCapture):
             held = held[-1:] + [self.card.alloc(self.size(out))]
         return out
 
-    def graph(self, fn):
-        graph, out = super().graph(fn)
-        graph.pool = self.card.alloc(self.size(out))
+    def graph(self, fn, pool=None):
+        graph, out = super().graph(fn, pool)
+        if pool is None:
+            graph.pool = self.card.alloc(self.size(out))
+        else:
+            if not hasattr(pool, "block"):
+                pool.block = self.card.alloc(self.size(out))
+            graph.pool = pool
         return graph, out
 
 
@@ -115,9 +122,9 @@ def call(g, *args):
 
 
 def run(chain, *args, start=cloned):
-    """What Chain.__call__ does on the card, whole."""
+    """What Chain.__call__ does on the card, whole, on a FakeStream."""
     with chain.use(graphs.signature(args, {}), args) as entry:
-        return entry.run(graphs.tensors_of(args, {}), start)
+        return entry.run(graphs.tensors_of(args, {}), start, FakeStream())
 
 
 def _const(n):
@@ -388,8 +395,8 @@ def test_eviction_waits_for_a_replay_that_holds_the_lock():
 
 
 def test_eviction_waits_for_a_chains_pending_reads():
-    """An entry whose stream still reads its outputs (the events its
-    start returned) is zeroed only after those reads end."""
+    """An entry whose stream still reads its ring slots (the events its
+    start returned, one a slot) is zeroed only after those reads end."""
     reg = graphs.Registry(FakeCard(5 * UNIT // 2))
     chain = on_card(_toy_chain(), reg, _const(UNIT))
     x = torch.arange(1, 6)
@@ -406,7 +413,7 @@ def test_eviction_waits_for_a_chains_pending_reads():
     run(chain, x, start=lambda j, out, ev: (cloned(j, out, ev)[0], Reads()))
     kept = _leaves(entry.inputs, entry.carry, entry.outputs)
     call(_toy(_double, reg), torch.arange(3))
-    assert seen == [True] * 3
+    assert seen == [True] * graphs.RING_SLOTS
     assert not chain.entries and _zero(kept)
 
 
@@ -466,7 +473,7 @@ def test_recaptured_signature_gives_equal_outputs_and_tallies():
         assert l1 == l2 and t1 == t2
         assert t1["ntt"] == 3 + 5 * 3 and t1["encode"] == 1
         assert len(g.capturer.kinds("capture")) == 2
-        assert len(chain.capturer.kinds("capture")) == 2
+        assert len(chain.capturer.kinds("pool")) == 2
     finally:
         counters.restore(before)
 

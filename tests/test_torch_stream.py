@@ -1,4 +1,5 @@
-"""The port's per-prime streaming (ckks/stream.py) on its CPU path against
+"""The port's per-prime streaming (ckks/stream.py) on its CPU path, and its
+compiled streams through the fake capture of test_torch_chain.py, against
 seal_embedded_tpu.ckks.stream on the same numpy inputs, limb by limb and
 byte for byte."""
 
@@ -12,11 +13,12 @@ import torch
 from seal_embedded_tpu import api as japi
 from seal_embedded_tpu.ckks import stream as jstream
 from seal_embedded_tpu.ckks.asym import gen_pk_batch
-from seal_embedded_tpu.config import PRIMES_27BIT, Parms
+from seal_embedded_tpu.config import PRIMES_27BIT, PRIMES_30BIT, Parms
 from seal_embedded_tpu.io import network as jnet
 from seal_embedded_tpu.ops import modarith as jma
 from seal_embedded_tpu.ops.kernels.ntt import ntt_coeff_major_fused_sym
 from seal_embedded_tpu.ops.keccak import seed_to_words
+from seal_embedded_tpu_torch import graphs
 from seal_embedded_tpu_torch.ckks import stream as tstream
 from seal_embedded_tpu_torch.ckks.asym import AsymEncryptor
 from seal_embedded_tpu_torch.ckks.limbwise import LimbscanEncryptor
@@ -25,6 +27,7 @@ from seal_embedded_tpu_torch.convert import (context_from_jax, parms_from_jax,
 from seal_embedded_tpu_torch.io import network as tnet
 
 from conftest import seed_bytes
+from test_torch_chain import _fetched, faked, run_chain
 
 torch.set_num_threads(2)
 
@@ -182,3 +185,85 @@ def test_stream_argument_checks():
     with pytest.raises(ValueError, match="order"):
         tstream.sym_stream_with(LimbscanEncryptor(tp, order="reverse", device="cpu"),
                                 *args, order="forward")
+
+
+# 13 limbs at n = 64: every prime of PRIMES_30BIT is 1 mod 65536, so the
+# chain is valid at n = 64, where the JAX stream is cheap; the compiled
+# stream's ring of two slots wraps six times.
+RING_P = Parms(degree=64, moduli=PRIMES_30BIT[:13], scale=2.0 ** 25)
+RING_B = 3
+
+
+def _ring_inputs(seed=8):
+    rng = np.random.default_rng(seed)
+    n = RING_P.degree
+    return (rng.uniform(-1, 1, (RING_B, n // 2)).astype(np.float32),
+            (rng.integers(0, 3, n) - 1).astype(np.int32),
+            rng.integers(0, 2 ** 32, (RING_B, 16)).astype(np.uint32),
+            rng.integers(0, 2 ** 32, (RING_B, 16)).astype(np.uint32),
+            *(np.stack([rng.integers(0, q, n) for q in RING_P.moduli])
+              .astype(np.uint32) for _ in range(2)))
+
+
+def _ring_case(kind, order):
+    """(the JAX stream's limbs as (prime_idx, c0, c1), the port's compiled
+    stream, its CPU arguments) on _ring_inputs()."""
+    values, sk, share, err, pk0, pk1 = _ring_inputs()
+    tp = parms_from_jax(RING_P)
+    if kind == "sym":
+        jgen = jstream.sym_encrypt_stream(
+            *map(jnp.asarray, (values, sk, share, err)), RING_P, "f64", order)
+        s = tstream.sym_stream(tp, order, "cpu")
+        args = state_to_device(values, sk, share, err, device="cpu")
+    else:
+        jgen = jstream.asym_encrypt_stream(
+            *map(jnp.asarray, (values, pk0, pk1, err)), RING_P, "f64", order)
+        s = tstream.asym_stream(tp, order, "cpu")
+        args = (torch.as_tensor(values), *pk_to_device(pk0, pk1, device="cpu"),
+                torch.as_tensor(err.astype(np.int64)))
+    want = [(l["prime_idx"], np.asarray(l["c0"]), np.asarray(l["c1"]))
+            for l in jgen]
+    return want, s, args
+
+
+def _require_ring_limbs(limbs, want, rows=slice(None)):
+    assert [l["prime_idx"] for l in limbs] == [w[0] for w in want]
+    for l, (_, c0, c1) in zip(limbs, want):
+        assert l["ok"] is True and l["c0"].dtype == np.uint32
+        assert np.array_equal(l["c0"], c0[rows])
+        assert np.array_equal(l["c1"], c1[rows])
+
+
+@pytest.mark.parametrize("kind", ["sym", "asym"])
+@pytest.mark.parametrize("order", ["forward", "reverse"])
+def test_compiled_stream_wraps_the_ring_vs_jax(kind, order):
+    """13 limbs at n = 64 through the compiled stream's fake capture (two
+    ring slots, each written six or seven times a run): the capture, a
+    replay, and two runs interleaved limb by limb (the second on the
+    rows reversed, which reverses the JAX stream's rows), each limb
+    bit-equal to the JAX stream's; the eager CPU stream too."""
+    want, s, args = _ring_case(kind, order)
+    _require_ring_limbs(list(s(*args)), want)
+    chain = faked(graphs.Chain(s.chain.prologue, s.chain.step,
+                               s.chain.nsteps, torch.device("cpu")))
+    for _ in range(2):
+        _require_ring_limbs(list(map(tstream._fetch, run_chain(
+            chain, *args, start=_fetched(s)))), want)
+    flipped = tuple(t.flip(0) if t.dim() == 2 and t.shape[0] == RING_B
+                    else t for t in args)
+    runs = [map(tstream._fetch, run_chain(chain, *a, start=_fetched(s)))
+            for a in (args, flipped)]
+    got = [[], []]
+    for _ in range(13):
+        for k, run in enumerate(runs):
+            got[k].append(next(run))
+    _require_ring_limbs(got[0], want)
+    _require_ring_limbs(got[1], want, slice(None, None, -1))
+    entry, = chain.entries.values()
+    assert len(entry.outputs) == graphs.RING_SLOTS
+    # No slot is a hand-off (asym hands its ok on), which the next run's
+    # prologue rewrites while the last limbs' copies may still read.
+    handoffs = []
+    graphs.map_tensors(entry.carry, lambda t: handoffs.append(t.data_ptr()))
+    assert not {t.data_ptr() for out in entry.outputs for t in out} & set(
+        handoffs)
