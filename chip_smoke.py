@@ -170,7 +170,13 @@ line each:
    (``perf_memory.call_cost``, each beside ``Entry.replay``), and a
    compiled function that its caller drops leaves the registry zeroed.
    Evicting or dropping a function's entries must give their pools back
-   (memory_reserved).
+   (memory_reserved).  (e) The caller's tensors before idle entries:
+   ``perf_memory.run_held`` through the same factory (B = 1024, 2048 and
+   3072 captured, then 16 calls at B = 1024 holding every output, each
+   golden at both ends once all are held, the B = 1024 entry never
+   evicted), and ``se_encrypt_seeded`` with ``send`` at 16384/13, B =
+   1024, on a card that idle entries fill to under 2 GiB free, its sent
+   bytes golden at both ends.
 
 Phases 7 to 12 run before phase 6 prints, so their runs are in phase
 6's list; phases 4, 5 and 5b call the factories, so they capture graphs
@@ -194,7 +200,8 @@ import time
 import numpy as np
 import torch
 
-from perf_memory import (SEQUENCE, SEQUENCE_L, SEQUENCE_N, call_cost,
+from perf_memory import (HOLD_B, HOLD_CALLS, HOLD_FIRST, SEQUENCE,
+                         SEQUENCE_L, SEQUENCE_N, call_cost, run_held,
                          run_sequence, timed_call)
 from perf_stages import PORT_KERNELS, kernel_alone_ms, timeline, trace
 from seal_embedded_tpu_torch import adapter, api, graphs, sweep
@@ -2784,6 +2791,11 @@ EVERY_LIMB_POOL_MIB = {"sym": 2600.4, "asym": 1273.3}
 STREAM_POOL_MIB = {"sym": 1350, "asym": 700}
 RING_L = 3
 RING_GAP_MIB = 32
+# (e): what the idle entries leave free before the API's send path, and
+# the most one of them holds.
+FILL_FREE_GIB = 2
+FILL_MAX_GIB = 16
+GIB = 2 ** 30
 
 
 def entry_name(owner, sig) -> str:
@@ -3146,12 +3158,147 @@ def memory_dropped(dev, smi):
           f"{smi}")
 
 
+def free_bytes() -> int:
+    """The card's free bytes once the allocator's cache is handed back."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def memory_held(dev, smi, reg, card):
+    """(e): perf_memory.run_held through the compiled fused sym factory at
+    16384/13, its earlier graphs evicted first: B = HOLD_FIRST captured,
+    then HOLD_CALLS calls at B = HOLD_B with every output kept (the
+    middle rows of call k from seed DEPTH_SEED + k), each golden at both
+    ends once all are held; the B = HOLD_B entry is the same throughout
+    (never evicted for the outputs).  Returns the largest peak
+    memory_reserved."""
+    gold = load_golden("sym", MEMORY_N, MEMORY_L)
+    fn = make_fused_encryptor(default_parms(MEMORY_N, MEMORY_L), device=dev)
+    g = compiled_of(fn)
+    print(f"[12 memory] (e) {entry_name(g, ((), ()))}: its earlier "
+          f"signatures first: {cleared(g)}; {smi}")
+    evictions, top, live = reg.evictions, 0, []
+    t0 = time.perf_counter()
+
+    def inputs_of(batch, k):
+        values, share, err = depth_inputs(
+            gold, batch, DEPTH_SEED + (0 if k is None else k))
+        return state_to_device(values, gold["sk"], share, err, dev)
+
+    def report(k, args, out, ms, peak):
+        nonlocal top
+        top = max(top, peak)
+        live.append(g.entries.get(graphs.signature(args, {})))
+        print(f"[12 memory] (e) held call {k} sym n={MEMORY_N} "
+              f"L={MEMORY_L} B={HOLD_B}: {k + 1} outputs held, "
+              f"{ms:.1f} ms (host clock, card finished); "
+              f"{reg.evictions - evictions} evictions since the captures "
+              f"began; memory_reserved {torch.cuda.memory_reserved() / MIB:.1f}"
+              f" MiB, peak in the call {peak / MIB:.1f} of "
+              f"{card / MIB:.1f}; registry {len(reg.order)} entries, "
+              f"{reg.resident() / MIB:.1f} MiB; {smi}")
+    held = run_held(fn, inputs_of, report, HOLD_FIRST, HOLD_B, HOLD_CALLS)
+    for k, out in enumerate(held):
+        check_golden_ends(out, gold, f"memory (e) held call {k}")
+    if live[0] is None or any(e is not live[0] for e in live):
+        raise AssertionError("memory (e): the held calls' entry was "
+                             "evicted or captured again")
+    outs = graphs.nbytes(held)
+    reserved = torch.cuda.memory_reserved()
+    del held
+    print(f"[12 memory] (e) held outputs: B={list(HOLD_FIRST)} captured, "
+          f"then k = {HOLD_CALLS} of {HOLD_CALLS} calls at B={HOLD_B} with "
+          f"every output held ({outs / MIB:.1f} MiB), each golden at both "
+          f"ends and ok for all, one live entry throughout; "
+          f"{reg.evictions - evictions} evictions; memory_reserved with all"
+          f" held {reserved / MIB:.1f} MiB of {card / MIB:.1f}; "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return top
+
+
+def card_filler(x, size):
+    """A compiled function whose graph's pool keeps a scratch of `size`
+    bytes: once captured, an idle entry of about that size."""
+    return {"y": x + torch.zeros(size, dtype=torch.uint8,
+                                 device=x.device)[:1]}
+
+
+def memory_api_full(dev, smi, reg, card):
+    """(e): se_encrypt_seeded with send at 16384/13, B = HOLD_B (the
+    golden rows at both ends), its signature captured first, then idle
+    card_filler entries captured until the card has under FILL_FREE_GIB
+    free (none evicted): the call's clones, the canonicality check and
+    the send path's casts make their room, and every sent component of
+    the golden rows equals ct_component_bytes of the golden file."""
+    gold = load_golden("sym", MEMORY_N, MEMORY_L)
+    G = gold["v"].shape[0]
+    values, share, err = depth_inputs(gold, HOLD_B)
+    share_seeds = [kc.words_to_bytes_np(w) for w in share]
+    err_seeds = [kc.words_to_bytes_np(w) for w in err]
+    ctx = api.se_setup_custom(MEMORY_N, MEMORY_L, 2 ** 25, api.SYM,
+                              sk=gold["sk"], device=dev)
+    check_golden_ends(api.se_encrypt_seeded(ctx, values, share_seeds,
+                                            err_seeds), gold,
+                      "memory (e) api")
+    fill = graphs.graphed(card_filler, dev)
+    x = torch.zeros(1, dtype=torch.int64, device=dev)
+    evictions, sizes = reg.evictions, []
+    while (free := free_bytes()) >= FILL_FREE_GIB * GIB:
+        if len(sizes) == graphs.MAX_ENTRIES:
+            raise AssertionError(f"memory (e): {len(sizes)} fillers left "
+                                 f"{free} B free")
+        # Sizes apart by a byte: each is a signature of its own.
+        sizes.append(min(free - 3 * GIB // 2, FILL_MAX_GIB * GIB)
+                     - len(sizes))
+        fill(x, sizes[-1])
+    if reg.evictions != evictions:
+        raise AssertionError("memory (e): filling the card evicted "
+                             f"{reg.evictions - evictions} entries")
+    per_message = 2 * MEMORY_L
+    sent = {"n": 0, "bad": []}
+
+    def send(data):
+        b, rest = divmod(sent["n"], per_message)
+        i, part = divmod(rest, 2)
+        sent["n"] += 1
+        golden = b < G or b >= HOLD_B - G
+        row = b if b < G else b - (HOLD_B - G)
+        if golden and data != serialize.ct_component_bytes(
+                gold[("c0", "c1")[part]][i, row]):
+            sent["bad"].append((b, i, part))
+        if len(data) != 4 * MEMORY_N:
+            sent["bad"].append((b, i, part, len(data)))
+        return len(data)
+    before = reg.evictions
+    start = time.perf_counter()
+    out = api.se_encrypt_seeded(ctx, values, share_seeds, err_seeds,
+                                send=send)
+    ms = (time.perf_counter() - start) * 1e3
+    check_golden_ends(out, gold, "memory (e) api send")
+    del out
+    if sent["bad"] or sent["n"] != per_message * HOLD_B:
+        raise AssertionError(f"memory (e) api send: {sent['n']} components"
+                             f" sent, wrong: {sent['bad'][:8]}")
+    print(f"[12 memory] (e) api se_encrypt_seeded with send, sym n="
+          f"{MEMORY_N} L={MEMORY_L} B={HOLD_B}, its signature captured, "
+          f"then {len(sizes)} idle card_filler entries "
+          f"({sum(sizes) / MIB:.1f} MiB, none evicted) left {free / MIB:.1f}"
+          f" MiB free: the call evicted {reg.evictions - before} entries "
+          f"for its clones, check and casts and took {ms:.1f} ms (host "
+          f"clock, with the send); {sent['n']} components sent, the golden"
+          f" rows 0..{G - 1} and {HOLD_B - G}..{HOLD_B - 1} equal to "
+          f"ct_component_bytes of the golden file, ok for all; {smi}")
+    api.se_cleanup(ctx)
+    fill.clear()
+
+
 def phase_memory(dev, smi):
     """Phase 12: the registry holds the card's memory as jax.jit does (see
-    memory_sequence, memory_signatures, memory_streams, memory_early); no
-    peak memory_reserved in a call above the card.  Returns the launch
-    counts of the streams' replays with the kernels their paths must
-    launch."""
+    memory_sequence, memory_signatures, memory_streams, memory_early,
+    memory_held, memory_api_full); no peak memory_reserved in a call
+    above the card.  Returns the launch counts of the streams' replays
+    with the kernels their paths must launch."""
     t0 = time.perf_counter()
     reg = graphs.registry_for(dev)
     early = set(reg.order)
@@ -3170,6 +3317,8 @@ def phase_memory(dev, smi):
     runs = memory_streams(dev, smi)
     memory_early(dev, smi, early)
     memory_dropped(dev, smi)
+    top = max(top, memory_held(dev, smi, reg, card))
+    memory_api_full(dev, smi, reg, card)
     if top > card:
         raise AssertionError(f"memory_reserved peaked at {top} B, above the "
                              f"card's {card} B")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Memory and call cost of the compiled fused sym factory on one card.
 
-    python3 perf_memory.py [--root DIR]     # needs one card
+    python3 perf_memory.py [--root DIR] [--hold]     # needs one card
 
 Runs through the package under DIR (default: this checkout), so that one
 chip call can run a parent checkout beside this one:
@@ -22,12 +22,21 @@ chip call can run a parent checkout beside this one:
   a capture that ran out) ends the sequence, and its line says at which B
   and at what memory_reserved.
 
+* **Held outputs** (``--hold``, in place of the two parts above): the
+  same factory at 16384/13 captures B = 1024, 2048 and 3072 (each output
+  dropped: the last two signatures stay idle), then runs 16 calls at
+  B = 1024 and keeps every output, as ``outs.append(fn(x))`` does.  Each
+  output is 3,584 MiB: under ``jax.jit`` the card holds all 16 beside
+  one call's working set.  After each call it prints k, the call's ms,
+  the registry's evictions so far and memory_reserved; a call that runs
+  out of memory ends the loop, and its line says at which k.
+
 Inputs come from numpy seed 9.  The last line is one JSON object with
-both parts, the card's name, power limit and memory.  Exits 0 whether the
-sequence ran out or not: it records what happens and checks no bits.
-``chip_smoke.py`` phase 12 runs both parts through ``run_sequence`` and
-``call_cost``, with golden rows at both ends of every batch.  Imports no
-jax.
+the parts run, the card's name, power limit and memory.  Exits 0 whether
+the sequence or the loop ran out or not: it records what happens and
+checks no bits.  ``chip_smoke.py`` phase 12 runs the parts through
+``run_sequence``, ``call_cost`` and ``run_held``, with golden rows at
+both ends of every batch.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ SEQUENCE = (1024, 2048, 3072, 4096, 5120, 1024)
 SEQUENCE_N, SEQUENCE_L = 16384, 13
 CALL_N, CALL_L, CALL_B = 4096, 3, 1024
 ROUNDS = 30
+HOLD_FIRST = (1024, 2048, 3072)
+HOLD_B, HOLD_CALLS = 1024, 16
 SEED = 9
 MIB = 2 ** 20
 
@@ -75,6 +86,24 @@ def run_sequence(fn, inputs_of, report, batches=SEQUENCE) -> None:
         out, ms, peak = timed_call(fn, args)
         report(i, batch, args, out, ms, peak)
         del out, args
+
+
+def run_held(fn, inputs_of, report, first=HOLD_FIRST, batch=HOLD_B,
+             calls=HOLD_CALLS) -> list:
+    """fn(*inputs_of(b, None)) once for each b of `first`, each output
+    dropped (their signatures captured, then idle), then `calls` calls
+    fn(*inputs_of(batch, k)), every output kept, and report(k, args, out,
+    ms, peak) after each (see timed_call).  Returns the outputs kept.  An
+    error, such as running out of memory, propagates."""
+    for b in first:
+        timed_call(fn, inputs_of(b, None))
+    held = []
+    for k in range(calls):
+        args = inputs_of(batch, k)
+        out, ms, peak = timed_call(fn, args)
+        held.append(out)
+        report(k, args, out, ms, peak)
+    return held
 
 
 def before_registry(g, args: tuple, lock):
@@ -127,11 +156,11 @@ def call_cost(g, args: tuple, rounds: int = ROUNDS) -> dict:
         "replay": lambda: entry.replay(tensors, stream)}, rounds)
 
 
-def inputs(batch: int, n: int, dev):
+def inputs(batch: int, n: int, dev, seed: int = SEED):
     """values, sk_signed, share and err words for `batch` messages at
-    degree n, on `dev`."""
+    degree n, on `dev`, from numpy seed `seed`."""
     from seal_embedded_tpu_torch.convert import state_to_device
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     values = rng.uniform(-1, 1, (batch, n // 2)).astype(np.float32)
     sk = (rng.integers(0, 3, n) - 1).astype(np.int32)
     share, err = (rng.integers(0, 2 ** 32, (batch, 16), dtype=np.int64)
@@ -139,9 +168,52 @@ def inputs(batch: int, n: int, dev):
     return state_to_device(values, sk, share, err, dev)
 
 
+def held_outputs(root: str, dev, smi: str, total: int) -> dict:
+    """--hold: run_held through the fused sym factory at 16384/13, each
+    held call's inputs from numpy seed SEED + k; where it ran out."""
+    from seal_embedded_tpu_torch import graphs
+    from seal_embedded_tpu_torch.ckks.fast import make_fused_encryptor
+    from seal_embedded_tpu_torch.config import default_parms
+
+    fn = make_fused_encryptor(default_parms(SEQUENCE_N, SEQUENCE_L),
+                              device=dev)
+    reg = graphs.registry_for(dev)
+    calls, stopped = [], None
+
+    def report(k, _args, _out, ms, peak):
+        reserved = torch.cuda.memory_reserved(dev)
+        calls.append({"k": k, "ms": ms, "evictions": reg.evictions,
+                      "reserved_mib": reserved / MIB, "peak_mib":
+                      peak / MIB})
+        print(f"[memory] {root}: held call {k} B={HOLD_B}: {ms:.1f} ms "
+              f"(host clock, card finished), {k + 1} outputs held, "
+              f"{reg.evictions} evictions so far, memory_reserved "
+              f"{reserved / MIB:.1f} MiB of {total / MIB:.1f}; {smi}")
+
+    held = []
+    try:
+        held = run_held(fn, lambda b, k: inputs(
+            b, SEQUENCE_N, dev, SEED if k is None else SEED + k), report)
+    except RuntimeError as exc:
+        # torch.OutOfMemoryError, or the error of a capture that ran out.
+        k = len(calls)
+        reserved = torch.cuda.memory_reserved(dev)
+        stopped = {"k": k, "reserved_mib": reserved / MIB,
+                   "error": f"{type(exc).__name__}: "
+                            f"{str(exc).splitlines()[0]}"}
+        print(f"[memory] {root}: held call {k} ran out of memory with {k} "
+              f"outputs held, memory_reserved {reserved / MIB:.1f} MiB of "
+              f"{total / MIB:.1f}: {stopped['error']}; {smi}")
+    del held
+    return {"first": HOLD_FIRST, "batch": HOLD_B, "calls": calls,
+            "stopped": stopped}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--hold", action="store_true",
+                    help="run the held-output loop only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("perf_memory: no CUDA device", file=sys.stderr)
@@ -156,6 +228,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     total = torch.cuda.get_device_properties(dev).total_memory
+    if args.hold:
+        print(json.dumps({"root": args.root, "hold": held_outputs(
+            args.root, dev, smi, total), "card": smi,
+            "total_mib": total / MIB}))
+        return 0
 
     fn = make_fused_encryptor(default_parms(CALL_N, CALL_L), device=dev)
     cost = call_cost(fn, inputs(CALL_B, CALL_N, dev))

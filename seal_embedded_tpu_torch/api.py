@@ -41,7 +41,7 @@ from .ckks.fast import make_fused_encryptor
 from .ckks.sym import make_decryptor
 from .config import Parms, default_parms
 from .convert import CUDA, pk_to_device, unpack_ternary
-from .graphs import graphed
+from .graphs import allocate, graphed, to_device
 from .io import serialize
 from .ops import keccak as kc
 from .ops.encode import check_encode_mode, make_decoder
@@ -86,16 +86,19 @@ class SEContext:
 
 
 def _seed_words_batch(seeds: list[bytes], device=None) -> torch.Tensor:
-    """64-byte seeds -> int64 (B, 16) u32 words on `device`."""
-    return torch.as_tensor(
+    """64-byte seeds -> int64 (B, 16) u32 words on `device` (an eager
+    upload, graphs.to_device)."""
+    return to_device(
         np.stack([kc.seed_to_words(s) for s in seeds]).astype(np.int64),
-        device=device)
+        device)
 
 
 def _to_host_u32(t: torch.Tensor) -> np.ndarray:
     """Canonical u32 values (< q < 2^31) held in int64 -> a uint32 numpy
-    array; the copy travels as int32, half the bytes."""
-    return t.to(torch.int32).cpu().numpy().view(np.uint32)
+    array; the copy travels as int32, half the bytes (the cast an eager
+    allocation on t's device, graphs.allocate)."""
+    return allocate(lambda: t.to(torch.int32), t.device,
+                    t.numel() * 4).cpu().numpy().view(np.uint32)
 
 
 def sample_sk_from_seed(parms: Parms, seed: bytes) -> np.ndarray:
@@ -121,8 +124,7 @@ def _make_context(parms: Parms, encrypt_type: str, device,
                     encode_mode=encode_mode)
     if sk_signed is not None:
         ctx.sk_signed = np.array(sk_signed, dtype=np.int32)
-        ctx._sk = torch.as_tensor(ctx.sk_signed.astype(np.int64),
-                                  device=device)
+        ctx._sk = to_device(ctx.sk_signed.astype(np.int64), device)
     if encrypt_type == ASYM:
         if pk0 is None or pk1 is None:
             raise ValueError("an asymmetric context needs pk0 and pk1")
@@ -177,10 +179,9 @@ def se_setup_custom(degree: int, nprimes: int, scale: float,
             ep_seed = hashlib.shake_256(seed + b"ep").digest(64)
             ep = np.array(sample_poly_cbd_16(n, Prng(ep_seed)), dtype=np.int64)
             pk = gen_pk_batch(
-                torch.as_tensor(np.asarray(sk_signed, np.int64), device=device),
-                torch.as_tensor(kc.seed_to_words(seed).astype(np.int64),
-                                device=device),
-                torch.as_tensor(ep, device=device), parms)
+                to_device(np.asarray(sk_signed, np.int64), device),
+                to_device(kc.seed_to_words(seed).astype(np.int64), device),
+                to_device(ep, device), parms)
             pk0, pk1 = (_to_host_u32(p) for p in pk)
     return _make_context(parms, encrypt_type, device, sk_signed, pk0, pk1,
                          encode_mode)
@@ -228,7 +229,7 @@ def se_encrypt_seeded(ctx: SEContext, values: np.ndarray,
 
     dev = ctx.device
     seeds = seeds or [os.urandom(64) for _ in range(B)]
-    v = torch.as_tensor(values, device=dev)
+    v = to_device(values, dev)
     if ctx.encrypt_type == SYM:
         if ctx._sk is None:
             raise ValueError("symmetric encryption needs the secret key")

@@ -26,7 +26,7 @@ import torch
 
 from ..config import Parms
 from ..convert import CUDA
-from ..graphs import graphed
+from ..graphs import allocate, graphed, to_device
 from ..ops import modarith as ma
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
@@ -158,10 +158,12 @@ def asym_encrypt_batch(values, pk0, pk1, seed_words, parms: Parms,
 
 def key_tensor(pk, device) -> torch.Tensor:
     """A public-key component (int64 or uint32 (L, n), a tensor or an
-    array) as an int64 tensor on `device`."""
+    array) as an int64 tensor on `device` (an eager allocation,
+    graphs.allocate)."""
     if isinstance(pk, torch.Tensor):
-        return pk.to(device, torch.int64)
-    return torch.as_tensor(np.asarray(pk).astype(np.int64), device=device)
+        return allocate(lambda: pk.to(device, torch.int64), device,
+                        pk.numel() * 8)
+    return to_device(np.asarray(pk).astype(np.int64), device)
 
 
 class _KeyedEncryptor:

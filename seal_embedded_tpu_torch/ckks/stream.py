@@ -57,7 +57,7 @@ import torch
 
 from ..config import Parms
 from ..convert import CUDA
-from ..graphs import Chain, eager_chain
+from ..graphs import Chain, eager_chain, to_device
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
 from .asym import AsymEncryptor, key_tensor
@@ -319,7 +319,7 @@ def sym_encrypt_stream(values, sk_signed, share_words, err_words,
     """
     check_encode_mode(encode_mode)
     dev = _device(values, device)
-    return sym_stream(parms, order, dev)(*(t.to(dev) for t in (
+    return sym_stream(parms, order, dev)(*(to_device(t, dev) for t in (
         values, sk_signed, share_words, err_words)))
 
 
@@ -334,8 +334,8 @@ def asym_encrypt_stream(values, pk0, pk1, seed_words, parms: Parms,
     check_encode_mode(encode_mode)
     dev = _device(values, device)
     return asym_stream(parms, order, dev)(
-        values.to(dev), key_tensor(pk0, dev), key_tensor(pk1, dev),
-        seed_words.to(dev))
+        to_device(values, dev), key_tensor(pk0, dev), key_tensor(pk1, dev),
+        to_device(seed_words, dev))
 
 
 def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
@@ -367,8 +367,8 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
                          "one 64-byte shareable seed per message")
     ctx.resolved_encode_mode()
     dev = ctx.device
-    vals = torch.as_tensor(
-        np.atleast_2d(np.asarray(values, dtype=np.float32)), device=dev)
+    vals = to_device(np.atleast_2d(np.asarray(values, dtype=np.float32)),
+                     dev)
     err_w = _seed_words_batch(err_seeds, dev)
     if ctx.encrypt_type == ASYM:
         if ctx._pk is None:

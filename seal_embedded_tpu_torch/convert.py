@@ -47,9 +47,17 @@ def unpack_ternary(packed, n: int) -> np.ndarray:
 unpack_sk = unpack_ternary
 
 
+def to_device(array, device):
+    """graphs.to_device: an upload that idle compiled entries on the card
+    make room for.  Imported here when called, since graphs imports the
+    kernel modules, which import CUDA from this module."""
+    from .graphs import to_device
+    return to_device(array, device)
+
+
 def _u32_tensor(words, device):
-    return torch.as_tensor(np.asarray(words, dtype=np.uint32).astype(np.int64),
-                           device=device)
+    return to_device(np.asarray(words, dtype=np.uint32).astype(np.int64),
+                     device)
 
 
 def pk_to_device(pk0, pk1, device=CUDA):
@@ -59,9 +67,9 @@ def pk_to_device(pk0, pk1, device=CUDA):
 
 def asym_state_to_device(values, seed_words, device=CUDA):
     """numpy inputs of asym_encrypt_fused -> the port's tensors: values
-    float32 (B, vlen), private seed words int64 (B, 16)."""
-    return (torch.as_tensor(np.asarray(values, dtype=np.float32),
-                            device=device),
+    float32 (B, vlen), private seed words int64 (B, 16).  Every upload
+    here is an eager allocation (graphs.to_device)."""
+    return (to_device(np.asarray(values, dtype=np.float32), device),
             _u32_tensor(seed_words, device))
 
 
@@ -69,8 +77,6 @@ def state_to_device(values, sk_signed, share_words, err_words,
                     device=CUDA):
     """numpy inputs of sym_encrypt_fused -> the port's tensors: values
     float32 (B, vlen), sk int64 (n,), share/err seed words int64 (B, 16)."""
-    return (torch.as_tensor(np.asarray(values, dtype=np.float32),
-                            device=device),
-            torch.as_tensor(np.asarray(sk_signed, dtype=np.int64),
-                            device=device),
+    return (to_device(np.asarray(values, dtype=np.float32), device),
+            to_device(np.asarray(sk_signed, dtype=np.int64), device),
             _u32_tensor(share_words, device), _u32_tensor(err_words, device))

@@ -34,14 +34,21 @@ its kernels.
   nothing is left to evict); then entries are
   evicted, oldest first and of any function, until that peak fits in what
   the card has free, and once it is captured until its outputs fit, for
-  the first replay's copies.  Any sequence of calls that each fits the
-  card alone thus runs to its end, as under ``jax.jit``; entries are
-  evicted only when a capture needs their room, so memory that eager
-  code allocates meanwhile does not evict them.  One capture runs on a
-  device at a time (it reads the device's memory); live entries of every
-  function replay meanwhile.  The registry holds its functions weakly: a
-  compiled function that its caller drops (or a factory's cache pushes
-  out) has its entries released as at an eviction.
+  the first replay's copies.  Idle entries never take the room of the
+  caller's tensors either: an eager allocation on the card (a call's
+  clones of its outputs, the port's uploads and casts: ``allocate``)
+  that runs out of memory evicts least recently used entries, of any
+  function but the one whose call is under way, until its bytes are
+  free, and runs again; a call whose clones ran out runs again whole,
+  its launches counted once.  So a sequence of calls runs to its end
+  whenever each call's own working set, beside what the caller holds,
+  fits the card, as under ``jax.jit``; with nothing left to evict, it
+  raises torch.OutOfMemoryError.  One capture runs on a device at a
+  time (it reads the device's memory), and so does an eviction; live
+  entries of every function replay meanwhile.  The registry holds its
+  functions weakly: a compiled function that its caller drops (or a
+  factory's cache pushes out) has its entries released as at an
+  eviction.
 * **Tallies**: a replay runs no wrapper and no collective of
   ``parallel/comm.py``, so the entry keeps the change that the capture
   (which launched nothing) made to the kernel counters and the maps
@@ -310,23 +317,78 @@ class Registry:
         """The bytes the live entries' captures left reserved."""
         return sum(e.resident for e in list(self.order.values()))
 
-    def _make_room(self, need: int) -> None:
-        """Evict least recently used entries until `need` bytes are free:
-        chosen by their resident bytes against one reading of what is
-        free, then read again (a pool may hand back less than its entry's
-        resident bytes)."""
-        free = self.memory.free()
-        while free < need and self.order:
+    def _make_room(self, need: int, keep=None) -> int:
+        """Evict least recently used entries, never `keep` (a key of
+        `order`), until `need` bytes are free: chosen by their resident
+        bytes against one reading of what is free, then read again (a
+        pool may hand back less than its entry's resident bytes).
+        Returns how many went."""
+        free, evicted = self.memory.free(), 0
+        while free < need:
             with self.lock:
                 keys, freed = [], 0
                 for key, entry in self.order.items():
                     if free + freed >= need:
                         break
-                    keys.append(key)
-                    freed += entry.resident
+                    if key != keep:
+                        keys.append(key)
+                        freed += entry.resident
                 victims = self._pop(keys)
+            if not victims:
+                break
             self._release(victims)
+            evicted += len(victims)
             free = self.memory.free()
+        return evicted
+
+    def _evict_oldest(self, keep=None) -> int:
+        """Evict the least recently used entry but `keep`; how many went
+        (0 or 1)."""
+        with self.lock:
+            key = next((k for k in self.order if k != keep), None)
+            victims = self._pop([] if key is None else [key])
+        self._release(victims)
+        return len(victims)
+
+    def _evictable(self, keep=None) -> bool:
+        with self.lock:
+            return any(k != keep for k in self.order)
+
+    def allocate(self, fn, need, keep=None):
+        """fn(), an eager allocation on the device, outside any graph, of
+        `need` bytes (or need(), read once fn has run out), held to the
+        card's memory as under jax.jit, where idle compiled functions hold
+        nothing.  If fn runs out of memory, least recently used entries of
+        any function but `keep` (the key of the entry whose call is under
+        way) are evicted until `need` bytes are free, or the oldest one
+        where they are free already (the free bytes are split, or fn needs
+        more than it said), and fn runs again; torch.OutOfMemoryError is
+        raised once nothing is left to evict.  A call of fn that fits
+        reads no memory and waits for nothing.  fn must hold no entry's
+        lock when it raises: an eviction takes the lock of each victim."""
+        evicted = True
+        while True:
+            try:
+                return fn()
+            except torch.OutOfMemoryError:
+                if (self.memory is None or not evicted
+                        or not self._evictable(keep)):
+                    raise
+            # Out of the except clause: what fn allocated before it ran
+            # out is gone.
+            evicted = self._evict_for(need() if callable(need) else need,
+                                      keep)
+
+    def _evict_for(self, need: int, keep) -> bool:
+        """allocate's eviction, under `capturing`: whether any entry went.
+        None goes while this thread captures (the capture's warm-up made
+        the allocation, and a capture allows no release: the capture's
+        own rules make its room)."""
+        with self.capturing:
+            if self.busy:
+                return False
+            return bool(self._make_room(need, keep)
+                        or self._evict_oldest(keep))
 
     def captured(self, prepare, record, owner, size: int):
         """Under `capturing`: prepare() (the static copies and the
@@ -360,9 +422,7 @@ class Registry:
             if guess > self.memory.free():
                 self._make_room(guess)
             else:
-                with self.lock:
-                    victims = self._pop([next(iter(self.order))])
-                self._release(victims)
+                self._evict_oldest()
         if size:
             owner.need_per_byte = need / size
         self._make_room(need)
@@ -378,13 +438,35 @@ _registries: dict = {}
 _registries_lock = threading.Lock()
 
 
-def registry_for(device: torch.device) -> Registry:
-    """The registry of a CUDA device: one per device and process, as the
-    device's memory is."""
+def registry_for(device) -> Registry:
+    """The registry of a device: one per device and process, as the
+    device's memory is (``cuda`` is the current CUDA device, None the
+    CPU, as torch.as_tensor takes it).  Another device's has no memory
+    to hold to."""
+    device = torch.device(device or "cpu")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     with _registries_lock:
         if device not in _registries:
-            _registries[device] = Registry(CardMemory(device))
+            _registries[device] = Registry(
+                CardMemory(device) if device.type == "cuda" else None)
         return _registries[device]
+
+
+def allocate(fn, device, need: int):
+    """fn(), an eager allocation of `need` bytes on `device` outside any
+    graph, through the device's registry (Registry.allocate): on a card
+    that idle compiled entries fill, they make room for it.  Elsewhere
+    fn() as it is."""
+    return registry_for(device).allocate(fn, need)
+
+
+def to_device(data, device) -> torch.Tensor:
+    """torch.as_tensor(data, device=device), data a numpy array or a
+    tensor in the dtype it keeps, as an eager allocation of its bytes
+    (allocate)."""
+    return allocate(partial(torch.as_tensor, data, device=device), device,
+                    data.nbytes)
 
 
 class Capture:
@@ -444,6 +526,11 @@ class Capture:
         return out, tallies
 
 
+def clone_out(outputs):
+    """The caller's copies of a replay's static outputs."""
+    return map_tensors(outputs, torch.clone)
+
+
 class Entry:
     """One captured signature: its static input tensors, its graph, the
     static outputs in the graph's pool, what one replay adds to the
@@ -472,21 +559,22 @@ class Entry:
         for dst, src in zip(self.inputs, tensors):
             dst.copy_(src)
 
-    def _replay(self, tensors: list, stream) -> None:
-        """Under the lock: copy in (_copy_in), replay and count."""
-        self._copy_in(tensors, stream)
-        self.graph.replay()
-        counters.add(self.launches)
-
     def replay(self, tensors: list, stream=None):
         """Copy `tensors` into the static inputs, replay, and return the
-        outputs cloned (on `stream`, the caller's current stream)."""
+        outputs cloned (clone_out, on `stream`, the caller's current
+        stream).  The replay's launches are counted once the clones are
+        made: a call whose clones run out of memory runs again whole
+        (Graphed.on_card) and counts once."""
         with self.lock:
-            self._replay(tensors, stream)
-            out = map_tensors(self.outputs, torch.clone)
-            if self.done is not None:
-                self.done.record(stream)   # a replay on another stream
-                self.waits = [self.done]
+            self._copy_in(tensors, stream)
+            self.graph.replay()
+            try:
+                out = clone_out(self.outputs)
+            finally:
+                if self.done is not None:
+                    self.done.record(stream)   # a replay on another stream
+                    self.waits = [self.done]
+            counters.add(self.launches)
         return out
 
     def scrub(self) -> None:
@@ -602,14 +690,31 @@ class Graphed(_Compiled):
     def __call__(self, *args, **kwargs):
         if self.device.type != "cuda":
             return self.fn(*args, **kwargs)
+        return self.on_card(args, kwargs,
+                            torch.cuda.current_stream(self.device))
+
+    def on_card(self, args: tuple, kwargs: dict, stream=None):
+        """The call on the card: the entry of its signature (captured on a
+        miss) replayed on `stream`, its outputs cloned, as an eager
+        allocation of their bytes (Registry.allocate): where the clones
+        run out of memory, the registry evicts other entries, never this
+        one, and the whole call runs again once the entry's lock is let
+        go (a capture that evicts takes it)."""
         tensors = tensors_of(args, kwargs)
         self._check_devices(tensors)
-        entry = self.locked(signature(args, kwargs), args, kwargs)
-        try:
-            return entry.replay(tensors,
-                                torch.cuda.current_stream(self.device))
-        finally:
-            entry.lock.release()
+        sig = signature(args, kwargs)
+        used = []
+
+        def call():
+            entry = self.locked(sig, args, kwargs)
+            try:
+                used[:] = [entry]
+                return entry.replay(tensors, stream)
+            finally:
+                entry.lock.release()
+        return self.registry.allocate(
+            call, lambda: nbytes(used[0].outputs) if used else 0,
+            (self.ref, sig))
 
     def capture(self, args: tuple, kwargs: dict) -> Entry:
         """Warm fn up on static copies of the tensor arguments, then

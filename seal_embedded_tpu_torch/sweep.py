@@ -49,6 +49,7 @@ from .ckks.stream import asym_encrypt_stream, sym_encrypt_stream
 from .ckks.sym import make_decryptor, sym_encrypt_batch
 from .config import PRIMES_27BIT, Parms, default_parms
 from .convert import CUDA, state_to_device
+from .graphs import to_device
 from .io import serialize
 from .ops.encode import ifft_root_tables_from_file, index_map_np, make_decoder
 
@@ -102,8 +103,8 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False,
     decoder = make_decoder(parms, dev)
 
     def decode_check(c0, c1):
-        c0, c1 = (torch.as_tensor(np.asarray(c).astype(np.int64),
-                                  device=dev) for c in (c0, c1))
+        c0, c1 = (to_device(np.asarray(c).astype(np.int64), dev)
+                  for c in (c0, c1))
         centered = decryptor(c0, c1, sk)
         return max(float(np.abs(decoder(centered[i]).cpu().numpy()
                                 - values_np).max())
@@ -175,9 +176,9 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False,
 
     # Asymmetric: the batch and the per-prime stream agree limb by limb
     # and decrypt + decode within tolerance (ckks_asym.c:205-288).
-    ep = torch.as_tensor(rng.integers(-20, 21, n), device=dev)
-    pk_seed = torch.as_tensor(
-        rng.integers(0, 2 ** 32, (1, 16)).astype(np.int64), device=dev)
+    ep = to_device(rng.integers(-20, 21, n), dev)
+    pk_seed = to_device(rng.integers(0, 2 ** 32, (1, 16)).astype(np.int64),
+                        dev)
     pk0, pk1 = gen_pk_batch(sk, pk_seed, ep, parms)
     c0, c1, ok = host(make_asym_encryptor(parms, device=dev)(
         args[0], pk0, pk1, args[3]))
@@ -201,7 +202,7 @@ def run_sweep(degree: int = 512, batch: int = 4, quick: bool = False,
                 os.path.join(d, f"intt_fast_roots_{n}_{int(q)}.dat"), n,
                 fast=True)
             loaded[int(q)] = (pairs[:, 0].copy(), pairs[:, 1].copy())
-    bc0, bc1 = (torch.as_tensor(c, device=dev) for c in base_ct)
+    bc0, bc1 = (to_device(c, dev) for c in base_ct)
     want = decryptor(bc0, bc1, sk)
     got = make_decryptor(parms, "lazy", loaded, dev)(bc0, bc1, sk)
     passed = bool(torch.equal(got, want))

@@ -36,6 +36,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..graphs import to_device
+
 
 @dataclass
 class BatchRecord:
@@ -176,9 +178,8 @@ class CheckpointedRunner:
         dev = sk_signed.device
         outs = {}
         for bid, inputs in self.journal.pending():
-            values = torch.as_tensor(inputs["values"], device=dev)
-            share, err = (torch.as_tensor(inputs[k].astype(np.int64),
-                                          device=dev)
+            values = to_device(inputs["values"], dev)
+            share, err = (to_device(inputs[k].astype(np.int64), dev)
                           for k in ("share_words", "err_words"))
             outs[bid] = self.run(bid, values, sk_signed, share, err,
                                  on_output)

@@ -8,7 +8,11 @@ private pool once its graph and tensors are gone.  The registry reads the
 fake card where it reads torch.cuda on the card.  The sequence case runs
 the port's SymEncryptor (its plain path) through the registry, call by
 call against seal_embedded_tpu.ckks.fast.make_fused_encryptor on the
-same numpy inputs, bit for bit.  The card itself runs chip_smoke.py
+same numpy inputs, bit for bit.  The caller's tensors are charged to the
+fake card too where the card would hold them: a replay's clones of its
+outputs (charge_clones) and the port's uploads and casts (ChargingRegistry),
+so that held outputs and uploads on a card full of idle entries make
+their room, as under jax.jit.  The card itself runs chip_smoke.py
 phase 12."""
 
 import gc
@@ -21,13 +25,20 @@ import numpy as np
 import pytest
 import torch
 
+from seal_embedded_tpu import api as japi
 from seal_embedded_tpu import config as jcfg
 from seal_embedded_tpu.ckks import fast as jfast
+from seal_embedded_tpu.ckks import stream as jstream
+from seal_embedded_tpu.io import network as jnet
+from seal_embedded_tpu_torch import api as tapi
 from seal_embedded_tpu_torch import graphs
+from seal_embedded_tpu_torch.ckks import stream as tstream
 from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
 from seal_embedded_tpu_torch.convert import parms_from_jax, state_to_device
+from seal_embedded_tpu_torch.io import network as tnet
 from seal_embedded_tpu_torch.ops.kernels import counters
 
+from conftest import seed_bytes
 from test_torch_chain import (FakeCapture, FakeStream, _eager_toy,
                               _toy_chain, cloned)
 
@@ -107,6 +118,34 @@ class CardCapture(FakeCapture):
         return graph, out
 
 
+def charged(card, out):
+    """out, each of its tensors holding its bytes of `card` until it is
+    dropped (torch.OutOfMemoryError past the card), as the card holds a
+    tensor made there."""
+    def hold(t):
+        t.held = card.alloc(t.nbytes)
+        return t
+    return graphs.map_tensors(out, hold)
+
+
+def charge_clones(monkeypatch, card):
+    """Every replay's clones of its outputs (graphs.clone_out) made on
+    `card`: a clone past the card raises under the entry's lock, as on
+    the card."""
+    monkeypatch.setattr(graphs, "clone_out", lambda outputs: charged(
+        card, graphs.map_tensors(outputs, torch.clone)))
+
+
+class ChargingRegistry(graphs.Registry):
+    """A Registry whose eager allocations (Registry.allocate: the port's
+    uploads and casts, a replay's whole call) are made on its fake card:
+    each tensor they return is charged there."""
+
+    def allocate(self, fn, need, keep=None):
+        return super().allocate(lambda: charged(self.memory, fn()), need,
+                                keep)
+
+
 def on_card(compiled, registry, size=graphs.nbytes):
     """A Graphed or Chain on the CPU made to capture on registry's fake
     card, in that registry."""
@@ -117,8 +156,7 @@ def on_card(compiled, registry, size=graphs.nbytes):
 
 def call(g, *args):
     """What Graphed.__call__ does on the card."""
-    with g.use(graphs.signature(args, {}), args, {}) as entry:
-        return entry.replay(graphs.tensors_of(args, {}))
+    return g.on_card(args, {})
 
 
 def run(chain, *args, start=cloned):
@@ -194,6 +232,233 @@ def test_signatures_beyond_the_card_all_run_and_equal_jax():
     assert len(g.capturer.kinds("capture")) == len(SEQUENCE)
     assert [e.resident - graphs.nbytes(e.inputs)
             for e in reg.order.values()] == [pools[8], pools[2]]
+
+
+# --------------------------------------- eager allocations on a full card
+
+HELD = 4
+
+
+def test_held_outputs_beside_idle_entries_run_and_equal_jax(monkeypatch):
+    """A loop that holds every output, as `outs.append(f(x))` does, on a
+    card that three idle entries of another function and the live entry
+    fill: each call's clones evict the least recently used idle entry
+    and run again, so all HELD calls complete, each equal to the JAX
+    fused encryptor on the same inputs, and the live entry is never
+    evicted (one capture)."""
+    P = jcfg.default_parms(1024, 1)
+    enc = SymEncryptor(parms_from_jax(P), CPU)
+    inputs = [_sym_inputs(2, seed=10 + 7 * i) for i in range(HELD)]
+    out_bytes = graphs.nbytes(enc(*state_to_device(*inputs[0], device=CPU)))
+    card = FakeCard(5 * out_bytes)
+    reg = graphs.Registry(card)
+    charge_clones(monkeypatch, card)
+    other = _toy(_double, reg, _const(out_bytes))
+    for k in (3, 4, 5):
+        call(other, torch.arange(k))
+    g = on_card(graphs.Graphed(enc, CPU), reg)
+    jfn = jfast.make_fused_encryptor(P, "f64")
+    held = []
+    for i in range(HELD):
+        held.append(call(g, *state_to_device(*inputs[i], device=CPU)))
+        want = jfn(*map(jnp.asarray, inputs[i]))
+        for k in ("c0", "c1", "pt", "pte", "ok"):
+            got = held[-1][k].numpy()
+            assert np.array_equal(got, np.asarray(want[k]).astype(got.dtype)
+                                  ), (i, k)
+    assert reg.evictions == 3 and not other.entries
+    assert len(g.capturer.kinds("capture")) == 1 and len(g.entries) == 1
+    assert card.used == card.total
+
+
+def test_allocation_never_evicts_the_entry_under_way():
+    """Registry.allocate evicts least recently used entries for an
+    allocation that runs out, but never `keep`, even where it is the
+    oldest; with nothing else left it raises torch.OutOfMemoryError."""
+    card = FakeCard(4 * UNIT)
+    reg = graphs.Registry(card)
+    g1, g2, g3 = (_toy(fn, reg) for fn in (_double, _plus_one, _double))
+    a = torch.arange(3)
+    for g in (g1, g2, g3):
+        call(g, a)
+    entry, = g1.entries.values()
+    keep = (g1.ref, graphs.signature((a,), {}))
+    assert next(iter(reg.order)) == keep            # the oldest
+    block = reg.allocate(lambda: card.alloc(3 * UNIT), 3 * UNIT, keep)
+    assert not g2.entries and not g3.entries and reg.evictions == 2
+    assert g1.entries == {keep[1]: entry} and entry.graph is not None
+    with pytest.raises(torch.OutOfMemoryError):
+        reg.allocate(lambda: card.alloc(UNIT), UNIT, keep)
+    assert entry.graph is not None and reg.evictions == 2
+    del block
+    assert reg.allocate(lambda: card.alloc(UNIT), UNIT, keep).n == UNIT
+
+
+def test_held_outputs_beyond_the_card_raise_once_nothing_is_left(
+        monkeypatch):
+    """Held outputs evict the idle entry of another function, then fill
+    the card: the next call raises torch.OutOfMemoryError, its entry
+    still live and the card as before; once an output is dropped the
+    entry replays again without a capture."""
+    card = FakeCard(5 * UNIT)
+    reg = graphs.Registry(card)
+    charge_clones(monkeypatch, card)
+    other = _toy(_plus_one, reg)
+    call(other, torch.arange(3))
+    g = _toy(_double, reg)
+    x = torch.arange(UNIT // 8)                      # outputs of one UNIT
+    held = [call(g, x + i) for i in range(4)]
+    entry, = g.entries.values()
+    assert not other.entries and reg.evictions == 1
+    with pytest.raises(torch.OutOfMemoryError):
+        call(g, x)
+    assert g.entries == {graphs.signature((x,), {}): entry}
+    assert entry.graph is not None and card.used == card.total
+    held.pop(0)
+    assert torch.equal(call(g, x + 9)["y"], 2 * (x + 9))
+    assert len(g.capturer.kinds("capture")) == 1 and reg.evictions == 1
+    assert all(torch.equal(h["y"], 2 * (x + i + 1))
+               for i, h in enumerate(held[:3]))
+
+
+def test_a_retried_call_counts_its_launches_once(monkeypatch):
+    """A call whose clones ran out runs again whole (copy-in, replay,
+    clone): its launches are added to the counters once."""
+    card = FakeCard(4 * UNIT)
+    reg = graphs.Registry(card)
+    charge_clones(monkeypatch, card)
+    launches = dict(dict.fromkeys(counters.COUNTERS, 0), ntt=3, encode=1)
+
+    def counted(x):
+        counters.add(launches)
+        return {"y": 3 * x + 1}
+
+    other = _toy(_plus_one, reg)
+    call(other, torch.arange(3))
+    g = _toy(counted, reg)
+    x = torch.arange(UNIT // 8)
+    before = counters.tallies()
+    try:
+        held = [call(g, x), call(g, x + 1)]
+        mark = counters.read()
+        held.append(call(g, x + 2))            # runs out, evicts, again
+        assert reg.evictions == 1 and not other.entries
+        assert counters.since(mark) == launches
+        assert torch.equal(held[-1]["y"], 3 * (x + 2) + 1)
+    finally:
+        counters.restore(before)
+
+
+def test_a_capture_that_evicts_during_a_retry_ends_without_deadlock(
+        monkeypatch):
+    """A replay whose clones ran out lets its entry's lock go before it
+    waits to evict: a capture on another thread, under way meanwhile,
+    evicts that entry (its release takes the lock), and both calls end
+    with their own outputs."""
+    card = FakeCard(7 * UNIT // 2)
+    reg = graphs.Registry(card)
+    charge_clones(monkeypatch, card)
+    idle = _toy(_plus_one, reg)
+    call(idle, torch.arange(3))
+    g1 = _toy(_double, reg)
+    x = torch.arange(UNIT // 8)
+    out0 = call(g1, x)
+    entry, = g1.entries.values()
+    inside, go = threading.Event(), threading.Event()
+
+    def slow(y):
+        inside.set()
+        go.wait(timeout=30)
+        return {"y": y + 1}
+
+    g2 = _toy(slow, reg)
+    y = torch.arange(5)
+    results, errors = {}, []
+
+    def run(tag, g, arg):
+        try:
+            results[tag] = call(g, arg)["y"]
+        except Exception as exc:       # reported below, not swallowed
+            errors.append((tag, exc))
+
+    # Daemons: a deadlock fails the test without holding the process.
+    capturer = threading.Thread(target=run, args=("capture", g2, y),
+                                daemon=True)
+    capturer.start()
+    assert inside.wait(timeout=30)
+    replayer = threading.Thread(target=run, args=("replay", g1, x + 1),
+                                daemon=True)
+    replayer.start()
+    try:
+        time.sleep(0.3)
+        assert replayer.is_alive()              # waiting to evict
+        assert entry.lock.acquire(blocking=False)   # not holding the lock
+        entry.lock.release()
+    finally:
+        go.set()
+        capturer.join(timeout=30)
+        replayer.join(timeout=30)
+    assert not capturer.is_alive() and not replayer.is_alive()
+    assert not errors, errors
+    assert torch.equal(results["capture"], y + 1)
+    assert torch.equal(results["replay"], 2 * (x + 1))
+    assert torch.equal(out0["y"], 2 * x)
+    assert entry.graph is None and not idle.entries
+
+
+def test_memory_is_read_only_when_a_call_runs_out(monkeypatch):
+    """The common case: a live entry's call whose clones fit reads the
+    card's memory no more (no synchronize, no empty_cache).  One that
+    runs out reads it once before and once after its eviction."""
+    card = CountingCard(5 * UNIT)
+    reg = graphs.Registry(card)
+    charge_clones(monkeypatch, card)
+    other = _toy(_plus_one, reg)
+    call(other, torch.arange(3))
+    g = _toy(_double, reg)
+    x = torch.arange(UNIT // 8)
+    held = [call(g, x)]
+    readings = card.readings
+    held += [call(g, x + i) for i in (1, 2)]
+    assert card.readings == readings and other.entries
+    held.append(call(g, x + 3))
+    assert card.readings == readings + 2 and not other.entries
+    assert all(torch.equal(h["y"], 2 * (x + i)) for i, h in enumerate(held))
+
+
+@pytest.mark.parametrize("path", ["seeded", "streaming"])
+def test_api_uploads_on_a_card_full_of_idle_entries_equal_jax(
+        monkeypatch, path):
+    """se_encrypt_seeded (values, seed words, the send path's int32
+    casts) and se_encrypt_streaming (values, seed words) on a card whose
+    free bytes idle entries hold: each upload that runs out evicts them
+    and runs again, and the bytes sent equal the JAX API's."""
+    n, L, scale, b = 1024, 1, 2.0 ** 20, 2
+    jctx = japi.se_setup_custom(n, L, scale, japi.SYM, sk_seed=seed_bytes(1))
+    ctx = tapi.se_setup_custom(n, L, scale, tapi.SYM, sk_seed=seed_bytes(1),
+                               device=CPU)
+    values = np.random.default_rng(5).uniform(-1, 1, (b, n // 2)).astype(
+        np.float32)
+    share = [seed_bytes(10 + i) for i in range(b)]
+    seeds = [seed_bytes(20 + i) for i in range(b)]
+    reg = ChargingRegistry(FakeCard(3 * UNIT + 1024))
+    monkeypatch.setattr(graphs, "registry_for", lambda device: reg)
+    fillers = [_toy(_double, reg) for _ in range(3)]
+    for g in fillers:
+        g.capturer = SqueezedCapture(reg.memory, _const(UNIT))
+        call(g, torch.arange(3))
+    assert reg.memory.free() < values.nbytes
+    jsend, jstore = jnet.collecting_sender()
+    tsend, tstore = tnet.collecting_sender()
+    if path == "seeded":
+        japi.se_encrypt_seeded(jctx, values, share, seeds, send=jsend)
+        tapi.se_encrypt_seeded(ctx, values, share, seeds, send=tsend)
+    else:
+        jstream.se_encrypt_streaming(jctx, values, share, seeds, jsend)
+        tstream.se_encrypt_streaming(ctx, values, share, seeds, tsend)
+    assert tstore == jstore and len(tstore) == 2 * L * b
+    assert reg.evictions >= 1
+    assert sum(bool(g.entries) for g in fillers) == 3 - reg.evictions
 
 
 # ----------------------------------------------------------- the policy
