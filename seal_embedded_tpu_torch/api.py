@@ -45,6 +45,7 @@ from .graphs import allocate, graphed, to_device
 from .io import serialize
 from .ops import keccak as kc
 from .ops.encode import check_encode_mode, make_decoder
+from .utils import timing
 
 SYM = "sym"
 ASYM = "asym"
@@ -88,9 +89,11 @@ class SEContext:
 def _seed_words_batch(seeds: list[bytes], device=None) -> torch.Tensor:
     """64-byte seeds -> int64 (B, 16) u32 words on `device` (an eager
     upload, graphs.to_device)."""
-    return to_device(
-        np.stack([kc.seed_to_words(s) for s in seeds]).astype(np.int64),
-        device)
+    with timing.span("api.seed_pack"):
+        words = np.stack([kc.seed_to_words(s) for s in seeds]
+                         ).astype(np.int64)
+    with timing.span("api.upload"):
+        return to_device(words, device)
 
 
 def _to_host_u32(t: torch.Tensor) -> np.ndarray:

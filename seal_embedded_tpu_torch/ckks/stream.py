@@ -48,7 +48,6 @@ Bit-exact with the limb-scan pipeline (same sampler counter chaining).
 
 from __future__ import annotations
 
-import time
 from functools import lru_cache
 from typing import Callable, Iterator, Optional
 
@@ -60,6 +59,7 @@ from ..convert import CUDA
 from ..graphs import Chain, eager_chain, to_device
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
+from ..utils import timing
 from .asym import AsymEncryptor, key_tensor
 from .fast import SymEncryptor
 from .limbwise import ORDERS, LimbscanEncryptor
@@ -84,48 +84,61 @@ class _HostFetch:
                             if device.type == "cuda" else None)
 
     def start(self, prime_idx, q, parts, ready=None):
-        """Queue one limb's copy; returns the pending item, its copy event
-        last.  parts: c0, c1 int32 (B, n) and ok (B,) bool; ready: the
-        event that ends them in a compiled stream's ring slot, None for
-        tensors just made on the compute stream."""
-        if self.copy_stream is None:
-            return prime_idx, q, parts, None
-        if ready is None:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-            for t in parts:
-                # Made on the compute stream, read on the side stream: the
-                # allocator must not hand the memory out again before the
-                # copy ends.
-                t.record_stream(self.copy_stream)
-        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                     for t in parts)
-        with torch.cuda.stream(self.copy_stream):
-            self.copy_stream.wait_event(ready)
-            for h, t in zip(host, parts):
-                h.copy_(t, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.copy_stream)
-        return prime_idx, q, host, done
+        """Queue one limb's copy (a ``fetch.queue`` span); returns the
+        pending item, its copy event last.  parts: c0, c1 int32 (B, n) and
+        ok (B,) bool; ready: the event that ends them in a compiled
+        stream's ring slot, None for tensors just made on the compute
+        stream.  Under the run's card clock the copy is marked
+        (``dev.copy``) from the end of its wait for `ready` to its end."""
+        with timing.span("fetch.queue"):
+            if self.copy_stream is None:
+                return prime_idx, q, parts, None
+            if ready is None:
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+                for t in parts:
+                    # Made on the compute stream, read on the side stream:
+                    # the allocator must not hand the memory out again
+                    # before the copy ends.
+                    t.record_stream(self.copy_stream)
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in parts)
+            clock = timing.current_clock()
+            with torch.cuda.stream(self.copy_stream):
+                self.copy_stream.wait_event(ready)
+                if clock:
+                    begin = clock.event(self.copy_stream)
+                for h, t in zip(host, parts):
+                    h.copy_(t, non_blocking=True)
+                if clock:
+                    done = clock.event(self.copy_stream)
+                    clock.mark("dev.copy", begin, done)
+                else:
+                    done = torch.cuda.Event()
+                    done.record(self.copy_stream)
+            return prime_idx, q, host, done
 
 
 def _fetch(item) -> dict:
     """Wait for one limb's copy (an item of _HostFetch.start) and return
-    its dict; the host waits on that limb's copy event only."""
+    its dict; the host waits on that limb's copy event only, and its wait
+    (``fetch.wait``) is the dict's wait_ms.  While it waits, it reads the
+    card's intervals that have ended (timing.read_card_marks).  The ok
+    check and the host views are a ``fetch.view`` span."""
     prime_idx, q, (c0, c1, ok), done = item
-    wait_ms = 0.0
-    if done is not None:
-        t0 = time.perf_counter()
-        done.synchronize()
-        wait_ms = (time.perf_counter() - t0) * 1e3
-    ok = bool(ok.numpy().all())
-    if not ok:
-        raise AssertionError(
-            f"sampler overflow or encode overflow at prime {prime_idx}")
-    return {"prime_idx": prime_idx, "q": q,
-            "c0": c0.numpy().view(np.uint32),
-            "c1": c1.numpy().view(np.uint32), "ok": ok,
-            "wait_ms": wait_ms}
+    with timing.span("fetch.wait", timed=True) as wait:
+        timing.read_card_marks()
+        if done is not None:
+            done.synchronize()
+    with timing.span("fetch.view"):
+        ok = bool(ok.numpy().all())
+        if not ok:
+            raise AssertionError(
+                f"sampler overflow or encode overflow at prime {prime_idx}")
+        return {"prime_idx": prime_idx, "q": q,
+                "c0": c0.numpy().view(np.uint32),
+                "c1": c1.numpy().view(np.uint32), "ok": ok,
+                "wait_ms": 0.0 if done is None else wait.ms}
 
 
 def _pipeline(outs, walk, device: torch.device) -> Iterator[dict]:
@@ -354,7 +367,10 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
     notes the streams it used, and se_cleanup zeroes their copies of its
     keys.  The seeds are required: a missing list raises ValueError (the
     JAX function dies with a TypeError in its seed conversion).  Returns
-    the list of limb dicts.
+    the list of limb dicts.  The call is an ``api.call`` span, with the
+    seeds' packing (``api.seed_pack``), each upload (``api.upload``), the
+    chain's run (``chain.run``), each limb's fetch (``fetch.wait``,
+    ``fetch.view``) and its sends (``api.send``) under it.
     """
     from ..api import ASYM, _seed_words_batch
     from ..io import serialize
@@ -365,28 +381,31 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
     if ctx.encrypt_type != ASYM and share_seeds is None:
         raise ValueError("symmetric se_encrypt_streaming needs share_seeds, "
                          "one 64-byte shareable seed per message")
-    ctx.resolved_encode_mode()
-    dev = ctx.device
-    vals = to_device(np.atleast_2d(np.asarray(values, dtype=np.float32)),
-                     dev)
-    err_w = _seed_words_batch(err_seeds, dev)
-    if ctx.encrypt_type == ASYM:
-        if ctx._pk is None:
-            raise ValueError("asym streaming needs a loaded pk")
-        stream = asym_stream(ctx.parms, order, dev)
-        gen = stream(vals, *ctx._pk, err_w)
-    else:
-        if ctx._sk is None:
-            raise ValueError("sym streaming needs the secret key")
-        stream = sym_stream(ctx.parms, order, dev)
-        gen = stream(vals, ctx._sk, _seed_words_batch(share_seeds, dev),
-                     err_w)
-    ctx._streams.add(stream)
-    out = []
-    for limb in gen:
-        if send is not None:
-            for b in range(vals.shape[0]):
-                send(serialize.ct_component_bytes(limb["c0"][b]))
-                send(serialize.ct_component_bytes(limb["c1"][b]))
-        out.append(limb)
-    return out
+    with timing.span("api.call", root=True):
+        ctx.resolved_encode_mode()
+        dev = ctx.device
+        values = np.atleast_2d(np.asarray(values, dtype=np.float32))
+        with timing.span("api.upload"):
+            vals = to_device(values, dev)
+        err_w = _seed_words_batch(err_seeds, dev)
+        if ctx.encrypt_type == ASYM:
+            if ctx._pk is None:
+                raise ValueError("asym streaming needs a loaded pk")
+            stream = asym_stream(ctx.parms, order, dev)
+            gen = stream(vals, *ctx._pk, err_w)
+        else:
+            if ctx._sk is None:
+                raise ValueError("sym streaming needs the secret key")
+            stream = sym_stream(ctx.parms, order, dev)
+            gen = stream(vals, ctx._sk, _seed_words_batch(share_seeds, dev),
+                         err_w)
+        ctx._streams.add(stream)
+        out = []
+        for limb in gen:
+            if send is not None:
+                with timing.span("api.send"):
+                    for b in range(vals.shape[0]):
+                        send(serialize.ct_component_bytes(limb["c0"][b]))
+                        send(serialize.ct_component_bytes(limb["c1"][b]))
+            out.append(limb)
+        return out

@@ -98,6 +98,7 @@ from functools import partial
 import torch
 
 from .ops.kernels import counters
+from .utils import timing
 
 MAX_ENTRIES = 8
 WARMUP_CALLS = 2
@@ -264,10 +265,11 @@ class Registry:
 
     @staticmethod
     def _release(entries: list) -> None:
-        """Under `capturing`: each entry zeroed, then dropped (its
-        release)."""
+        """Under `capturing`: each evicted entry zeroed, then dropped (its
+        release), a ``registry.evict`` span each."""
         for entry in entries:
-            entry.release()
+            with timing.span("registry.evict"):
+                entry.release()
 
     def evict(self, owner) -> None:
         """Evict every entry of owner."""
@@ -309,7 +311,8 @@ class Registry:
                            if any(k[0] is r for r in refs)]
             finally:
                 self.lock.release()
-            self._release(victims)
+            for entry in victims:       # released, not evicted
+                entry.release()
         finally:
             self.capturing.release()
 
@@ -406,32 +409,33 @@ class Registry:
         first replay's copies of them (on a full card the allocator
         recycles the warm-up's cache, so its peak can fall short of a
         capture and a replay)."""
-        if self.memory is None:
-            return record(prepare())
-        while True:
-            try:
-                prepared, need = self.memory.peak(prepare)
-                break
-            except torch.OutOfMemoryError:
-                if not self.order:
-                    raise
-            # Out of the except clause: the failed warm-up's tensors are
-            # gone.
-            self.retries += 1
-            guess = int(owner.need_per_byte * size)
-            if guess > self.memory.free():
-                self._make_room(guess)
-            else:
-                self._evict_oldest()
-        if size:
-            owner.need_per_byte = need / size
-        self._make_room(need)
-        before = self.memory.reserved()
-        entry = record(prepared)
-        entry.resident = (self.memory.reserved() - before
-                          + nbytes(entry.inputs))
-        self._make_room(nbytes(entry.outputs))
-        return entry
+        with timing.span("registry.capture"):
+            if self.memory is None:
+                return record(prepare())
+            while True:
+                try:
+                    prepared, need = self.memory.peak(prepare)
+                    break
+                except torch.OutOfMemoryError:
+                    if not self.order:
+                        raise
+                # Out of the except clause: the failed warm-up's tensors are
+                # gone.
+                self.retries += 1
+                guess = int(owner.need_per_byte * size)
+                if guess > self.memory.free():
+                    self._make_room(guess)
+                else:
+                    self._evict_oldest()
+            if size:
+                owner.need_per_byte = need / size
+            self._make_room(need)
+            before = self.memory.reserved()
+            entry = record(prepared)
+            entry.resident = (self.memory.reserved() - before
+                              + nbytes(entry.inputs))
+            self._make_room(nbytes(entry.outputs))
+            return entry
 
 
 _registries: dict = {}
@@ -511,6 +515,11 @@ class Capture:
     def step_event(self):
         """The event a chain records on its stream after a step's graph."""
         return torch.cuda.Event()
+
+    def timing_event(self):
+        """An event with timing, for a run's device intervals while the
+        span recorder is on (timing.card_clock)."""
+        return torch.cuda.Event(enable_timing=True)
 
     def record(self, fn):
         """(fn's result, tallies): fn captures graphs; tallies is the
@@ -795,31 +804,46 @@ class ChainEntry(Entry):
     step, for the next run's stream."""
 
     def __init__(self, inputs: list, graph: ChainGraphs, outputs: list,
-                 launches: dict, events: list, carry, done=None):
+                 launches: dict, events: list, carry, done=None,
+                 timing_event=None):
         super().__init__(inputs, graph, outputs, launches, done)
         self.events = events
         self.carry = carry
         self.pending = [None] * len(outputs)
+        self.timing_event = timing_event
+        self.spare_events = []   # timing events a finished run read
 
     def run(self, tensors: list, start, stream=None) -> list:
         """Copy `tensors` in and replay the chain on `stream`, under the
         lock.  Before step j the stream waits for the pending reads of its
         slot; after it, it records events[j], and start(j, the slot,
         events[j]) queues the slot's reads and returns (item, the event
-        that ends them, or None).  Returns the items."""
+        that ends them, or None).  Returns the items.  While the span
+        recorder is on, the run's card clock (its thread's, for start)
+        marks the prologue (``dev.prologue``) and each step once its slot's
+        wait is over (``dev.step``), by timing events between the graphs."""
         with self.lock:
             self._copy_in(tensors, stream)
-            self.graph.prologue.replay()
-            items = []
-            for j, (graph, event) in enumerate(zip(self.graph.steps,
-                                                   self.events)):
-                k = j % len(self.outputs)
-                if self.pending[k] is not None:
-                    stream.wait_event(self.pending[k])
-                graph.replay()
-                event.record(stream)
-                item, self.pending[k] = start(j, self.outputs[k], event)
-                items.append(item)
+            with timing.card_clock(stream, self.timing_event,
+                                   self.spare_events) as clock:
+                self.graph.prologue.replay()
+                if clock:
+                    clock.mark("dev.prologue", clock.origin,
+                               clock.event(stream))
+                items = []
+                for j, (graph, event) in enumerate(zip(self.graph.steps,
+                                                       self.events)):
+                    k = j % len(self.outputs)
+                    if self.pending[k] is not None:
+                        stream.wait_event(self.pending[k])
+                    if clock:
+                        clock.limb, begin = j, clock.event(stream)
+                    graph.replay()
+                    event.record(stream)
+                    if clock:
+                        clock.mark("dev.step", begin, clock.event(stream))
+                    item, self.pending[k] = start(j, self.outputs[k], event)
+                    items.append(item)
             counters.add(self.launches)
             if self.done is not None:
                 self.done.record(stream)
@@ -860,15 +884,18 @@ class Chain(_Compiled):
 
     def __call__(self, args: tuple, start):
         if self.device.type != "cuda":
-            for j, out in enumerate(eager_chain(self.prologue, self.step,
-                                                self.nsteps, args)):
-                yield start(j, out, None)[0]
+            steps = eager_chain(self.prologue, self.step, self.nsteps, args)
+            for j in range(self.nsteps):
+                with timing.span("chain.run"):    # the step, as it is reached
+                    item = start(j, next(steps), None)[0]
+                yield item
             return
         tensors = tensors_of(args, {})
         self._check_devices(tensors)
-        with self.use(signature(args, {}), args) as entry:
-            items = entry.run(tensors, start,
-                              torch.cuda.current_stream(self.device))
+        with timing.span("chain.run"):
+            with self.use(signature(args, {}), args) as entry:
+                items = entry.run(tensors, start,
+                                  torch.cuda.current_stream(self.device))
         yield from items
 
     def capture(self, args: tuple) -> ChainEntry:
@@ -894,5 +921,5 @@ class Chain(_Compiled):
                 self.nsteps))
             return ChainEntry(tensors_of(s_args, {}), graph, slots, launches,
                               [cap.step_event() for _ in range(self.nsteps)],
-                              carry, cap.event())
+                              carry, cap.event(), cap.timing_event)
         return self.registry.captured(prepare, record, self, nbytes(args))

@@ -23,6 +23,8 @@ import pathlib
 import shutil
 import subprocess
 
+from ...utils import timing
+
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
               / "seal_embedded_tpu_torch")
@@ -97,13 +99,15 @@ def build() -> pathlib.Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built at first call."""
+    """The loaded kernel library, built at first call (a ``kernels.load``
+    span, the build included)."""
     global _lib
     if _lib is None:
-        loaded = ctypes.CDLL(str(build()))
-        loaded.sek_error_string.argtypes = [ctypes.c_int]
-        loaded.sek_error_string.restype = ctypes.c_char_p
-        _lib = loaded
+        with timing.span("kernels.load"):
+            loaded = ctypes.CDLL(str(build()))
+            loaded.sek_error_string.argtypes = [ctypes.c_int]
+            loaded.sek_error_string.restype = ctypes.c_char_p
+            _lib = loaded
     return _lib
 
 

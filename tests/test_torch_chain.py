@@ -89,6 +89,28 @@ class FakeEvent:
         self.log.append(("event", self.j))
 
 
+class FakeTimingEvent:
+    """An event with timing: record reads a fake card clock that each
+    record advances by TICK_MS (the time of one graph or copy), query is
+    True once recorded, elapsed_time is the ms between two records."""
+
+    TICK_MS = 0.5
+    clock = 0.0
+
+    def __init__(self):
+        self.at = None
+
+    def record(self, stream=None):
+        FakeTimingEvent.clock += self.TICK_MS
+        self.at = FakeTimingEvent.clock
+
+    def query(self):
+        return self.at is not None
+
+    def elapsed_time(self, end):
+        return end.at - self.at
+
+
 class FakeCopy:
     """A read of a ring slot queued on a side stream, and the event that
     ends it: the slot is copied into `host` only when the read is waited
@@ -136,7 +158,8 @@ class FakePool:
 class FakeCapture(graphs.Capture):
     """graphs.Capture on the CPU: warm-ups run fn, a shared pool logs
     ("pool",), a capture runs fn once and logs ("capture",), a replay
-    logs ("replay",), a step event ("event", j)."""
+    logs ("replay",), a step event ("event", j); its events with timing
+    are FakeTimingEvents."""
 
     def __init__(self):
         super().__init__(CPU)
@@ -165,6 +188,9 @@ class FakeCapture(graphs.Capture):
     def step_event(self):
         self.nevents += 1
         return FakeEvent(self.log, self.nevents - 1)
+
+    def timing_event(self):
+        return FakeTimingEvent()
 
     def kinds(self, kind):
         return [e[1:] for e in self.log if e[0] == kind]

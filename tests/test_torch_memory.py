@@ -19,6 +19,7 @@ import gc
 import threading
 import time
 import weakref
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +38,7 @@ from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
 from seal_embedded_tpu_torch.convert import parms_from_jax, state_to_device
 from seal_embedded_tpu_torch.io import network as tnet
 from seal_embedded_tpu_torch.ops.kernels import counters
+from seal_embedded_tpu_torch.utils import timing
 
 from conftest import seed_bytes
 from test_torch_chain import (FakeCapture, FakeStream, _eager_toy,
@@ -46,6 +48,30 @@ torch.set_num_threads(2)
 
 CPU = torch.device("cpu")
 UNIT = 1 << 20      # the toy functions' pool, in fake bytes
+
+
+# ------------------------------------------------------------- the spans
+
+_SPANS = []
+
+
+@pytest.fixture(autouse=True)
+def _recording():
+    """The span recorder on through every test here, what it recorded
+    before the test dropped."""
+    timing.take_spans()
+    _SPANS.clear()
+    timing.record_spans(True)
+    yield
+    timing.record_spans(False)
+    timing.take_spans()
+
+
+def _count(name):
+    """The spans `name` recorded since the test began: one
+    ``registry.capture`` a capture, one ``registry.evict`` an eviction."""
+    _SPANS.extend(timing.take_spans())
+    return sum(s.name == name for s in _SPANS)
 
 
 # ------------------------------------------------------------- the fakes
@@ -229,7 +255,9 @@ def test_signatures_beyond_the_card_all_run_and_equal_jax():
                                   ), (b, k)
         assert card.used <= card.total
     assert reg.evictions == 3
+    assert _count("registry.evict") == reg.evictions
     assert len(g.capturer.kinds("capture")) == len(SEQUENCE)
+    assert _count("registry.capture") == len(SEQUENCE)
     assert [e.resident - graphs.nbytes(e.inputs)
             for e in reg.order.values()] == [pools[8], pools[2]]
 
@@ -267,7 +295,9 @@ def test_held_outputs_beside_idle_entries_run_and_equal_jax(monkeypatch):
             assert np.array_equal(got, np.asarray(want[k]).astype(got.dtype)
                                   ), (i, k)
     assert reg.evictions == 3 and not other.entries
+    assert _count("registry.evict") == reg.evictions
     assert len(g.capturer.kinds("capture")) == 1 and len(g.entries) == 1
+    assert _count("registry.capture") == 4
     assert card.used == card.total
 
 
@@ -286,10 +316,12 @@ def test_allocation_never_evicts_the_entry_under_way():
     assert next(iter(reg.order)) == keep            # the oldest
     block = reg.allocate(lambda: card.alloc(3 * UNIT), 3 * UNIT, keep)
     assert not g2.entries and not g3.entries and reg.evictions == 2
+    assert _count("registry.evict") == reg.evictions
     assert g1.entries == {keep[1]: entry} and entry.graph is not None
     with pytest.raises(torch.OutOfMemoryError):
         reg.allocate(lambda: card.alloc(UNIT), UNIT, keep)
     assert entry.graph is not None and reg.evictions == 2
+    assert _count("registry.evict") == reg.evictions
     del block
     assert reg.allocate(lambda: card.alloc(UNIT), UNIT, keep).n == UNIT
 
@@ -310,6 +342,7 @@ def test_held_outputs_beyond_the_card_raise_once_nothing_is_left(
     held = [call(g, x + i) for i in range(4)]
     entry, = g.entries.values()
     assert not other.entries and reg.evictions == 1
+    assert _count("registry.evict") == reg.evictions
     with pytest.raises(torch.OutOfMemoryError):
         call(g, x)
     assert g.entries == {graphs.signature((x,), {}): entry}
@@ -317,6 +350,7 @@ def test_held_outputs_beyond_the_card_raise_once_nothing_is_left(
     held.pop(0)
     assert torch.equal(call(g, x + 9)["y"], 2 * (x + 9))
     assert len(g.capturer.kinds("capture")) == 1 and reg.evictions == 1
+    assert _count("registry.evict") == reg.evictions
     assert all(torch.equal(h["y"], 2 * (x + i + 1))
                for i, h in enumerate(held[:3]))
 
@@ -343,6 +377,7 @@ def test_a_retried_call_counts_its_launches_once(monkeypatch):
         mark = counters.read()
         held.append(call(g, x + 2))            # runs out, evicts, again
         assert reg.evictions == 1 and not other.entries
+        assert _count("registry.evict") == reg.evictions
         assert counters.since(mark) == launches
         assert torch.equal(held[-1]["y"], 3 * (x + 2) + 1)
     finally:
@@ -459,6 +494,7 @@ def test_api_uploads_on_a_card_full_of_idle_entries_equal_jax(
     assert tstore == jstore and len(tstore) == 2 * L * b
     assert reg.evictions >= 1
     assert sum(bool(g.entries) for g in fillers) == 3 - reg.evictions
+    assert _count("registry.evict") == reg.evictions
 
 
 # ----------------------------------------------------------- the policy
@@ -483,12 +519,14 @@ def test_eviction_is_least_recently_used_across_functions():
     c = torch.arange(5).reshape(5, 1)
     assert torch.equal(call(g2, c)["y"], c + 1)
     assert not chain.entries and reg.evictions == 1
+    assert _count("registry.evict") == reg.evictions
     d = torch.arange(4).reshape(2, 2)
     call(g1, d)
     assert list(reg.order) == [(g1.ref, sig((a,), {})),
                                (g2.ref, sig((c,), {})),
                                (g1.ref, sig((d,), {}))]
     assert reg.evictions == 2 and reg.memory.used == 3 * UNIT
+    assert _count("registry.evict") == reg.evictions
 
 
 def test_warm_up_past_the_card_raises_once_nothing_is_left():
@@ -515,6 +553,8 @@ def test_a_warm_up_that_runs_out_evicts_one_entry_at_a_time():
     big = _toy(_plus_one, reg, _const(2 * UNIT))   # its warm-up peaks at 4
     assert torch.equal(call(big, a)["y"], a + 1)
     assert reg.retries == 3 and reg.evictions == 3
+    assert _count("registry.evict") == reg.evictions
+    assert _count("registry.capture") == 5
     assert [bool(g.entries) for g in small] == [False, False, False, True]
     assert reg.memory.used == 3 * UNIT
 
@@ -534,6 +574,8 @@ def test_a_warm_up_that_runs_out_evicts_what_its_last_capture_needed():
     y = torch.arange(UNIT // 4)                  # four times as many
     assert torch.equal(call(f, y)["y"], 2 * y)
     assert reg.retries == 1 and reg.evictions == 3
+    assert _count("registry.evict") == reg.evictions
+    assert _count("registry.capture") == 6
     assert [bool(g.entries) for g in others] == [False, False, True, True]
     assert f.need_per_byte == 2.0
 
@@ -570,6 +612,7 @@ def test_room_is_made_from_one_reading_per_round():
     readings, card.need = card.readings, 5 * UNIT
     assert torch.equal(call(_toy(_plus_one, reg), a)["y"], a + 1)
     assert reg.evictions == 3 and not any(g.entries for g in olds)
+    assert _count("registry.evict") == reg.evictions
     assert card.readings - readings == 3
 
 
@@ -600,6 +643,7 @@ def test_room_is_made_for_the_first_replays_outputs():
     assert torch.equal(call(g, y)["y"], 2 * y)
     assert list(g.entries) == [graphs.signature((y,), {})]
     assert reg.evictions == 1 and reg.memory.free() >= pool
+    assert _count("registry.evict") == reg.evictions
     assert torch.equal(out, 2 * (x + 1))
 
 
@@ -614,6 +658,7 @@ def test_a_function_below_max_entries_keeps_every_entry():
         call(g, x)
         assert len(g.entries) == len(reg.order) == n
     assert reg.evictions == 0
+    assert _count("registry.evict") == reg.evictions
 
 
 def test_max_entries_per_function_still_holds():
@@ -625,6 +670,7 @@ def test_max_entries_per_function_still_holds():
     first = graphs.signature((xs[0],), {})
     assert first not in g.entries and len(g.entries) == 2
     assert len(reg.order) == 2 and reg.evictions == 1
+    assert _count("registry.evict") == reg.evictions
     assert reg.memory.used == 2 * UNIT
 
 
@@ -702,6 +748,7 @@ def test_evicted_entries_are_zeroed_before_their_graphs_are_dropped():
     call(g2, torch.arange(3))          # evicts g's entry
     call(g2, torch.arange(3).reshape(3, 1))    # and then the chain's
     assert zero_at_drop == [True, True] and reg.evictions == 2
+    assert _count("registry.evict") == reg.evictions
     assert not g.entries and not chain.entries
 
 
@@ -771,6 +818,7 @@ def test_a_dropped_function_hands_back_its_bytes_zeroed(kind):
     gc.collect()
     assert _zero(kept) and reg.memory.used == UNIT
     assert [k[0]() for k in reg.order] == [keep] and reg.evictions == 0
+    assert _count("registry.evict") == reg.evictions
 
 
 def test_a_function_dropped_during_a_capture_goes_when_it_ends():
@@ -822,3 +870,33 @@ def test_a_live_entry_replays_while_another_function_captures():
         go.set()
         capturer.join(timeout=30)
     assert not capturer.is_alive() and len(reg.order) == 2
+
+
+def test_the_kernel_library_loads_inside_the_first_capture(monkeypatch):
+    """The kernel library loads at the first launch, in the first
+    capture's warm-up: one ``kernels.load`` span, a child of that
+    capture's ``registry.capture`` (set-up's capture time is the
+    capture's less the load's), and none in a later capture."""
+    from seal_embedded_tpu_torch.ops.kernels import build
+    opened = []
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "build", lambda: "libfake.so")
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: (
+        opened.append(path) or SimpleNamespace(
+            sek_error_string=SimpleNamespace())))
+
+    def launching(x):
+        build.lib()
+        return {"y": 2 * x}
+
+    reg = graphs.Registry(FakeCard(4 * UNIT))
+    g = _toy(launching, reg)
+    for k in (3, 4):
+        assert torch.equal(call(g, torch.arange(k))["y"], 2 * torch.arange(k))
+    spans = timing.take_spans()
+    captures = [s for s in spans if s.name == "registry.capture"]
+    load, = [s for s in spans if s.name == "kernels.load"]
+    assert len(captures) == 2 and opened == ["libfake.so"]
+    assert load.parent == captures[0].id
+    assert captures[0].start_ns <= load.start_ns <= load.end_ns \
+        <= captures[0].end_ns
