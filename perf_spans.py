@@ -30,8 +30,11 @@ device ms, and the card's idle time before each step (``step_gap_ms``:
 the ring's wait and the host's launch); where ``api.call``'s self time
 lies, between which of its children (``call_self_by_place``); from
 set-up, ``capture_s`` (``registry.capture`` less the ``kernels.load``
-inside it).  The window calls' host-clock median
-and mean with the recorder on and off, the card's name and power limit.
+inside it).  Beside them, ``input_paths``: how many seed batches and
+uploads of those windows took each path of ``api.input_paths`` (seeds
+joined or seed by seed, uploads pinned or direct).  The window calls'
+host-clock median and mean with the recorder on and off, the card's name
+and power limit.
 The last line of its output is one JSON object; --out writes it too.
 Imports no jax.
 """
@@ -60,6 +63,7 @@ from benchmark import harness, stats  # noqa: E402
 from benchmark import trace as tr  # noqa: E402
 from benchmark.catalog import Catalog  # noqa: E402
 from benchmark.traffic import Sample  # noqa: E402
+from seal_embedded_tpu_torch import api  # noqa: E402
 from seal_embedded_tpu_torch.utils import timing  # noqa: E402
 
 SPAN_METRICS = {            # metric: the span names it sums over a call
@@ -163,16 +167,18 @@ def capture_s(spans) -> dict:
 
 
 def window(cell, seconds, sample, on: bool):
-    """One window of the cell with the recorder on or off: its calls and,
-    on, its spans."""
+    """One window of the cell with the recorder on or off: its calls, on
+    its spans, and the API's input paths it took (api.input_paths)."""
     timing.take_spans()
+    paths = api.input_paths.copy()
     timing.record_spans(on)
     win = cell.window(seconds, sample)
     timing.record_spans(False)
     spans = timing.take_spans()
+    paths = api.input_paths - paths
     if win.errors or win.walk_errors or win.failed:
         raise RuntimeError(f"a window call failed: {win.errors[:1]}")
-    return win.calls, spans
+    return win.calls, spans, paths
 
 
 def calls_summary(calls) -> dict:
@@ -287,19 +293,21 @@ def main() -> int:
     gc.collect()            # as benchmark/harness.py before its window
     gc.freeze()
     off_calls, on_calls, on_spans, rounds = [], [], [], []
+    paths = collections.Counter()
     for _ in range(a.rounds):
-        calls_off, _ = window(cell, half, sample, False)
-        calls_on, spans = window(cell, half, sample, True)
+        calls_off, _, _ = window(cell, half, sample, False)
+        calls_on, spans, on_paths = window(cell, half, sample, True)
         off_calls += calls_off
         on_calls += calls_on
         on_spans += spans
+        paths += on_paths
         rounds.append([calls_summary(calls_off)["median_ms"],
                        calls_summary(calls_on)["median_ms"]])
     result = {"workload": a.workload, "seed": a.seed, "card": card(),
               "setup_s": setup_s, "setup": capture_s(setup),
               "off": calls_summary(off_calls), "on": calls_summary(on_calls),
               "round_medians_off_on": rounds,
-              "spans": per_call(on_spans)}
+              "spans": {**per_call(on_spans), "input_paths": dict(paths)}}
     result["on_over_off"] = {
         k: result["on"][k] / result["off"][k] - 1
         for k in ("median_ms", "mean_ms")}

@@ -27,10 +27,12 @@ Where the JAX package's API differs, on purpose:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import os
-from functools import lru_cache
+import threading
+from functools import lru_cache, partial
 from typing import Callable, Optional
 
 import numpy as np
@@ -86,14 +88,62 @@ class SEContext:
         return self.encode_mode
 
 
-def _seed_words_batch(seeds: list[bytes], device=None) -> torch.Tensor:
-    """64-byte seeds -> int64 (B, 16) u32 words on `device` (an eager
-    upload, graphs.to_device)."""
-    with timing.span("api.seed_pack"):
-        words = np.stack([kc.seed_to_words(s) for s in seeds]
-                         ).astype(np.int64)
+# How many of the API's seed batches and uploads took each path:
+# "seeds.joined" (every seed 64 bytes: one view of their join) or
+# "seeds.per_seed" (seed_to_words a seed); "upload.pinned" (staged in
+# pinned host memory, on a card) or "upload.direct" (graphs.to_device).
+# perf_spans.py reports it beside the spans of the same work.
+input_paths = collections.Counter()
+_input_paths_lock = threading.Lock()
+
+
+def _took(path: str) -> None:
+    with _input_paths_lock:     # callers on several threads count each
+        input_paths[path] += 1
+
+
+def _seed_words(seeds: list[bytes]) -> np.ndarray:
+    """Seeds -> int64 (B, 16) u32 words, as np.stack of seed_to_words:
+    one frombuffer of their join where every seed is 64 bytes, else seed
+    by seed (a short seed zero-padded, what seed_to_words does)."""
+    if set(map(len, seeds)) == {64}:
+        _took("seeds.joined")
+        return np.frombuffer(b"".join(seeds), dtype="<u4").reshape(
+            -1, 16).astype(np.int64)
+    _took("seeds.per_seed")
+    return np.stack([kc.seed_to_words(s) for s in seeds]).astype(np.int64)
+
+
+def _pinned(device: torch.device) -> bool:
+    """Whether _upload stages through pinned host memory on `device`."""
+    return device.type == "cuda"
+
+
+def _upload(array: np.ndarray, device) -> torch.Tensor:
+    """One of a call's inputs on `device` (an ``api.upload`` span).  On a
+    card the array is copied once into pinned host memory (torch's
+    caching host allocator, which keeps the block until the copy has
+    read it) and from there, without the host waiting, on the current
+    stream, into a tensor allocated as an eager allocation
+    (graphs.allocate); elsewhere (None: the CPU) graphs.to_device."""
+    device = torch.device(device or "cpu")
     with timing.span("api.upload"):
-        return to_device(words, device)
+        if not _pinned(device):
+            _took("upload.direct")
+            return to_device(array, device)
+        _took("upload.pinned")
+        host = torch.from_numpy(array).pin_memory()
+        out = allocate(partial(torch.empty_like, host, device=device),
+                       device, host.nbytes)
+        return out.copy_(host, non_blocking=True)
+
+
+def _seed_words_batch(seeds: list[bytes], device=None) -> torch.Tensor:
+    """64-byte seeds -> int64 (B, 16) u32 words on `device`: their
+    packing (``api.seed_pack``), then their upload (_upload)."""
+    with timing.span("api.seed_pack"):
+        words = _seed_words(seeds)
+    return _upload(words, device)
 
 
 def _to_host_u32(t: torch.Tensor) -> np.ndarray:
@@ -232,7 +282,7 @@ def se_encrypt_seeded(ctx: SEContext, values: np.ndarray,
 
     dev = ctx.device
     seeds = seeds or [os.urandom(64) for _ in range(B)]
-    v = to_device(values, dev)
+    v = _upload(values, dev)
     if ctx.encrypt_type == SYM:
         if ctx._sk is None:
             raise ValueError("symmetric encryption needs the secret key")

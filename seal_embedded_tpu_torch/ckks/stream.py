@@ -366,13 +366,15 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
     a second call replays the chain the first one captured; the context
     notes the streams it used, and se_cleanup zeroes their copies of its
     keys.  The seeds are required: a missing list raises ValueError (the
-    JAX function dies with a TypeError in its seed conversion).  Returns
-    the list of limb dicts.  The call is an ``api.call`` span, with the
+    JAX function dies with a TypeError in its seed conversion).  The
+    values and seed words reach the card through pinned host memory
+    without the host waiting for the copies (api._upload).  Returns the
+    list of limb dicts.  The call is an ``api.call`` span, with the
     seeds' packing (``api.seed_pack``), each upload (``api.upload``), the
     chain's run (``chain.run``), each limb's fetch (``fetch.wait``,
     ``fetch.view``) and its sends (``api.send``) under it.
     """
-    from ..api import ASYM, _seed_words_batch
+    from ..api import ASYM, _seed_words_batch, _upload
     from ..io import serialize
 
     if err_seeds is None:
@@ -385,8 +387,7 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
         ctx.resolved_encode_mode()
         dev = ctx.device
         values = np.atleast_2d(np.asarray(values, dtype=np.float32))
-        with timing.span("api.upload"):
-            vals = to_device(values, dev)
+        vals = _upload(values, dev)
         err_w = _seed_words_batch(err_seeds, dev)
         if ctx.encrypt_type == ASYM:
             if ctx._pk is None:

@@ -183,6 +183,116 @@ def test_se_encrypt_random_seeds_and_checks():
     assert not bool(check(torch.zeros_like(c), c))
 
 
+# ------------------------------------------------- input packing, uploads
+
+def _per_seed_words(seeds):
+    """The seed words seed by seed: the packing's reference."""
+    return np.stack([kc.seed_to_words(s) for s in seeds]).astype(np.int64)
+
+
+def _outcome(fn, *args):
+    """fn's result, or its exception's type and message."""
+    try:
+        return fn(*args)
+    except Exception as e:      # noqa: BLE001 (compared, not handled)
+        return type(e), str(e)
+
+
+def _seed_list(case):
+    rng = np.random.default_rng(7)
+    seeds = {"b1": 1, "b16": 16, "b1024": 1024}
+    if case in seeds:
+        return [rng.bytes(64) for _ in range(seeds[case])]
+    return {"short_mixed": [rng.bytes(64), rng.bytes(10), b"", rng.bytes(64)],
+            "long_65": [rng.bytes(65)],
+            "long_68_mixed": [rng.bytes(68), rng.bytes(64)],
+            "long_68_all": [rng.bytes(68), rng.bytes(68)],
+            "empty": []}[case]
+
+
+@pytest.mark.parametrize("case", ["b1", "b16", "b1024", "short_mixed",
+                                  "long_65", "long_68_mixed", "long_68_all",
+                                  "empty"])
+def test_seed_words_equal_the_per_seed_stack(case):
+    """The packing gives np.stack of seed_to_words bit for bit, in dtype
+    and shape, or raises what it raises: from one view of the seeds' join
+    where every seed is 64 bytes, seed by seed otherwise."""
+    seeds = _seed_list(case)
+    want = _outcome(_per_seed_words, seeds)
+    got = _outcome(tapi._seed_words, seeds)
+    if isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray)
+        assert got.dtype == want.dtype == np.int64
+        assert got.shape == want.shape and np.array_equal(got, want)
+        dev = tapi._seed_words_batch(seeds, CPU)
+        assert dev.dtype == torch.int64
+        assert np.array_equal(dev.numpy(), want)
+    else:
+        assert got == want
+
+
+def fake_pinned(monkeypatch):
+    """The card's upload path on the CPU: every device stages, and a
+    "pinned" tensor is a fresh host copy, as torch's caching host
+    allocator hands out a block no pending copy reads."""
+    monkeypatch.setattr(tapi, "_pinned", lambda device: True)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", torch.Tensor.clone)
+
+
+@pytest.mark.parametrize("seeds,device,paths", [
+    ("b16", "cpu", {"seeds.joined": 1, "upload.direct": 1}),
+    ("short_mixed", "cpu", {"seeds.per_seed": 1, "upload.direct": 1}),
+    ("long_68_all", "cpu", {"seeds.per_seed": 1, "upload.direct": 1}),
+    ("b16", "staged", {"seeds.joined": 1, "upload.pinned": 1}),
+    ("short_mixed", "staged", {"seeds.per_seed": 1, "upload.pinned": 1})])
+def test_input_paths_count_each_path(monkeypatch, seeds, device, paths):
+    """api.input_paths counts a batch of 64-byte seeds as joined and any
+    other as seed by seed, and an upload as pinned where the device
+    stages (a card) and as direct on the CPU."""
+    if device == "staged":
+        fake_pinned(monkeypatch)
+    seeds = _seed_list(seeds)
+    before = tapi.input_paths.copy()
+    words = tapi._seed_words_batch(seeds, CPU)
+    assert dict(tapi.input_paths - before) == paths
+    assert np.array_equal(words.numpy(), _per_seed_words(seeds))
+
+
+@pytest.mark.parametrize("kind,upload", [
+    (tapi.SYM, "direct"), (tapi.SYM, "staged"), (tapi.ASYM, "staged")])
+def test_back_to_back_streaming_calls_equal_fresh_ones(monkeypatch, kind,
+                                                       upload):
+    """Three se_encrypt_streaming calls in a row on one context, each with
+    its own values and seeds, give the limbs the same calls give one by
+    one in fresh contexts: no call reads another's inputs."""
+    from seal_embedded_tpu_torch.ckks import stream as tstream
+    if upload == "staged":
+        fake_pinned(monkeypatch)
+    kw = {"sk_seed": seed_bytes(1)}
+    if kind == tapi.ASYM:
+        kw["pk_seed"] = seed_bytes(4)
+    rng = np.random.default_rng(11)
+    calls = [(_values(60 + k), [rng.bytes(64) for _ in range(B)],
+              [rng.bytes(64) for _ in range(B)]) for k in range(3)]
+    before = tapi.input_paths.copy()
+    ctx = tapi.se_setup_custom(N, L, SCALE, kind, device=CPU, **kw)
+    together = [tstream.se_encrypt_streaming(ctx, v, share, err)
+                for v, share, err in calls]
+    uploads = (3 if kind == tapi.SYM else 2) * len(calls)
+    path = "upload.pinned" if upload == "staged" else "upload.direct"
+    assert (tapi.input_paths - before)[path] == uploads
+    for (v, share, err), got in zip(calls, together):
+        fresh = tapi.se_setup_custom(N, L, SCALE, kind, device=CPU, **kw)
+        want = tstream.se_encrypt_streaming(fresh, v.copy(), list(share),
+                                            list(err))
+        assert len(got) == len(want) == L
+        for g, w in zip(got, want):
+            assert np.array_equal(g["c0"], w["c0"])
+            assert np.array_equal(g["c1"], w["c1"])
+    assert not all(np.array_equal(together[0][0]["c0"], t[0]["c0"])
+                   for t in together[1:])
+
+
 # ----------------------------------------------------------------- decode
 
 @pytest.mark.parametrize("kind", [tapi.SYM, tapi.ASYM])

@@ -41,6 +41,7 @@ from seal_embedded_tpu_torch.ops.kernels import counters
 from seal_embedded_tpu_torch.utils import timing
 
 from conftest import seed_bytes
+from test_torch_api import fake_pinned
 from test_torch_chain import (FakeCapture, FakeStream, _eager_toy,
                               _toy_chain, cloned)
 
@@ -468,6 +469,22 @@ def test_api_uploads_on_a_card_full_of_idle_entries_equal_jax(
     casts) and se_encrypt_streaming (values, seed words) on a card whose
     free bytes idle entries hold: each upload that runs out evicts them
     and runs again, and the bytes sent equal the JAX API's."""
+    _uploads_on_a_full_card(monkeypatch, path)
+
+
+@pytest.mark.parametrize("path", ["seeded", "streaming"])
+def test_staged_api_uploads_on_a_card_full_of_idle_entries_equal_jax(
+        monkeypatch, path):
+    """The same through the card's upload path (api._upload staging each
+    input in host memory, the device tensor an eager allocation): the
+    device tensors that run out evict idle entries as before."""
+    fake_pinned(monkeypatch)
+    before = tapi.input_paths.copy()
+    _uploads_on_a_full_card(monkeypatch, path)
+    assert (tapi.input_paths - before)["upload.pinned"] == 3
+
+
+def _uploads_on_a_full_card(monkeypatch, path):
     n, L, scale, b = 1024, 1, 2.0 ** 20, 2
     jctx = japi.se_setup_custom(n, L, scale, japi.SYM, sk_seed=seed_bytes(1))
     ctx = tapi.se_setup_custom(n, L, scale, tapi.SYM, sk_seed=seed_bytes(1),

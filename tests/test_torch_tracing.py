@@ -12,6 +12,9 @@ and its next run records the same events again; the graphs it captures
 are the same with the recorder on and off.  The device intervals of the
 card's copies run only on the card (``perf_spans.py``)."""
 
+import json
+import pathlib
+import sys
 import tracemalloc
 
 import numpy as np
@@ -31,6 +34,7 @@ from test_torch_chain import FakeTimingEvent, _fetched, faked, run_chain
 
 torch.set_num_threads(2)
 
+REPO = pathlib.Path(__file__).resolve().parents[1]
 P = Parms(degree=1024, moduli=PRIMES_27BIT[:2], scale=2.0 ** 20)
 B = 2
 CPU = torch.device("cpu")
@@ -320,3 +324,28 @@ def test_a_device_mark_is_read_once_it_has_ended(recording):
     with timing.card_clock(None, Pending, spare) as again:
         assert id(again.origin) in made and len(spare) == 3
     timing.take_spans()
+
+
+def test_perf_spans_prints_the_input_paths(tmp_path, monkeypatch, capsys):
+    """perf_spans.py on the CPU, on a copy of the benchmark whose traffic
+    runs B = 2: its line gives, beside seed_pack_ms and upload_ms, the
+    input paths its recorded windows took, every seed batch joined (the
+    traffic's seeds are 64 bytes) and every upload direct (no card)."""
+    sys.path.insert(0, str(REPO))
+    import perf_spans
+    from benchmark import harness, traffic
+    from benchmark.tests import copies
+    catalog = copies.copy(tmp_path, batch=2)
+    monkeypatch.setattr(perf_spans, "Catalog", lambda: catalog)
+    monkeypatch.setattr(harness, "WARMUP_CALLS", 2)
+    monkeypatch.setattr(traffic, "VALUE_BATCHES", 2)
+    monkeypatch.setattr(sys, "argv", [
+        "perf_spans.py", "--workload", "n4096.sym.b16", "--seed",
+        str(2 ** 31 + 5), "--seconds", "0.02", "--rounds", "1",
+        "--device", "cpu"])
+    assert perf_spans.main() == 0
+    spans = json.loads(capsys.readouterr().out.splitlines()[-1])["spans"]
+    calls = spans["calls"]
+    assert calls >= 1 and spans["seed_pack_ms"] > 0 and spans["upload_ms"] > 0
+    assert spans["input_paths"] == {"seeds.joined": 2 * calls,
+                                    "upload.direct": 3 * calls}
