@@ -39,6 +39,12 @@ line each:
 4. the port on the card against all seven sym and all three asym
    C-reference golden files (pk generation included), the sym goldens
    also through the limb-scan encryptor, sym_encrypt_batch and expand_c1;
+4b. the ternary draw's unbounded redraw: two seeds whose first block
+   needs more than 8 refills, planted in a B = 512 batch at 4096/3 and
+   16384/13, through ``se_encrypt_streaming`` asym: no call raises, the
+   rows run again are counted, the public key and the rows bit-equal to
+   the NumPy reference (``benchmark/reference``); the call's time with
+   and without the planted seeds;
 5. the headline batches (sym, asym, limb-scan reference, parallel and
    reverse, sym_encrypt_batch), rows 0..5 golden where the layout is the
    reference's, the others checked by expand_c1 and decrypt_batch: timed
@@ -857,6 +863,106 @@ def phase_golden(dev):
         check_golden_rows(out, gold, name)
         print(f"[4 golden] {name}.npz: gen_pk pk0/pk1 and {G} x {nprimes} "
               f"c0/c1/pt/pte bit-exact on {dev}")
+
+
+EXACT_CASES = (("seal-default-n4096", 512, None),
+               ("seal-n16384-L13", 512, 16))
+EXACT_SEEDS = (8337867, 2647653)   # > 8 refills in the first block
+EXACT_ROWS = (0, 1, 255, 511)      # where they are planted, twice each
+EXACT_ITERS = 3
+
+
+def exact_seed(value: int) -> bytes:
+    return value.to_bytes(8, "little").ljust(64, b"\x00")
+
+
+def exact_batch(n, batch, rng, planted=True):
+    """`batch` messages of uniform values and own seeds, the two seeds
+    that overflow the ternary queue planted at EXACT_ROWS (alternately)
+    where `planted`: (values, seeds)."""
+    values = rng.uniform(-1, 1, (batch, n // 2)).astype(np.float32)
+    seeds = [rng.bytes(64) for _ in range(batch)]
+    if planted:
+        for k, row in enumerate(EXACT_ROWS):
+            seeds[row] = exact_seed(EXACT_SEEDS[k % 2])
+    return values, seeds
+
+
+def phase_exact_ternary(dev, smi):
+    """4b: the planted seeds whose ternary block needs more than 8
+    refills, in a B = 512 batch at 4096/3 and 16384/13, through
+    se_encrypt_streaming (the compiled asym stream, its overflowed rows
+    encrypted again, asym.redo_overflowed): no call raises, the public
+    key and the rows (all at 4096/3, the planted and 12 more at depth)
+    bit-equal to the NumPy reference (benchmark/reference); then the
+    call's host-clock time with the seeds planted and without, median of
+    EXACT_ITERS each, in turns."""
+    from benchmark.catalog import Catalog
+    from benchmark.reference import ckks as rckks
+    from benchmark.reference.params import from_config
+    from seal_embedded_tpu_torch.ckks import asym as asym_mod
+
+    for config, batch, kept in EXACT_CASES:
+        p = from_config(Catalog().config(config))
+        n = p.degree
+        rng = np.random.default_rng(19)
+        sk = rng.integers(-1, 2, n).astype(np.int32)
+        pk_seed = rng.bytes(64)
+        ctx = api.se_setup_custom(n, p.nprimes, p.scale, api.ASYM, sk=sk,
+                                  pk_seed=pk_seed, device=dev)
+        pk = rckks.public_key(p, sk, pk_seed)
+        for got, want, name in zip((ctx.pk0, ctx.pk1), pk, ("pk0", "pk1")):
+            if not np.array_equal(got.astype(np.int64), want):
+                raise AssertionError(f"4b exact {config}: {name} differs "
+                                     "from the reference")
+        values, seeds = exact_batch(n, batch, rng)
+        plain = exact_batch(n, batch, rng, planted=False)
+        before = asym_mod.redo_counts()
+        limbs = stream.se_encrypt_streaming(ctx, values, err_seeds=seeds)
+        torch.cuda.synchronize()
+        redone = asym_mod.redo_counts()["rows"] - before["rows"]
+        if redone < len(EXACT_ROWS):
+            raise AssertionError(f"4b exact {config}: {redone} rows run "
+                                 f"again, fewer than the {len(EXACT_ROWS)} "
+                                 "planted")
+        if kept is None:
+            rows = np.arange(batch)
+        else:
+            others = np.setdiff1d(np.arange(batch), EXACT_ROWS)
+            rows = np.sort(np.concatenate([EXACT_ROWS, rng.choice(
+                others, kept - len(EXACT_ROWS), replace=False)]))
+        c0 = np.stack([l["c0"][rows] for l in limbs])
+        c1 = np.stack([l["c1"][rows] for l in limbs])
+        want0, want1 = [], []
+        for at in range(0, len(rows), 64):
+            part = rows[at:at + 64]
+            w0, w1 = rckks.asym_encrypt(p, pk[0], pk[1], values[part],
+                                        [seeds[r] for r in part])
+            want0.append(w0)
+            want1.append(w1)
+        for got, want, name in ((c0, np.concatenate(want0, 1), "c0"),
+                                (c1, np.concatenate(want1, 1), "c1")):
+            bad = int(np.count_nonzero(got != want))
+            if bad:
+                raise AssertionError(f"4b exact {config}: {bad} {name} "
+                                     "coefficients differ from the "
+                                     "reference")
+        del limbs
+        times = {"planted": [], "plain": []}
+        for _ in range(EXACT_ITERS):
+            for tag, (v, s) in (("planted", (values, seeds)),
+                                ("plain", plain)):
+                t0 = time.perf_counter()
+                stream.se_encrypt_streaming(ctx, v, err_seeds=s)
+                times[tag].append((time.perf_counter() - t0) * 1e3)
+        api.se_cleanup(ctx)
+        print(f"[4b exact] {config} asym n={n} L={p.nprimes} B={batch}: "
+              f"seeds {EXACT_SEEDS} at rows {EXACT_ROWS}, {redone} rows run "
+              f"again, no call raised; pk and {len(rows)} rows x "
+              f"{p.nprimes} limbs of c0/c1 bit-equal to the NumPy "
+              f"reference; call {statistics.median(times['planted']):.2f} "
+              f"ms planted, {statistics.median(times['plain']):.2f} ms "
+              f"without (host clock, median of {EXACT_ITERS}); {smi}")
 
 
 def headline_inputs(gold):
@@ -3339,6 +3445,7 @@ def main():
     kc_rows, calib_counts = phase_calibrate(dev, smi, sm_hz, rows)
     rows += kc_rows
     phase_golden(dev)
+    phase_exact_ternary(dev, smi)
     sym_path, table_path, asym_path = SYM_PATH, TABLE_PATH, ASYM_PATH
     runs = {"sym headline": (phase_headline_sym(dev, smi), sym_path),
             "asym headline": (phase_headline_asym(dev, smi),

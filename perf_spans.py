@@ -23,7 +23,9 @@ Per window call, from the spans of the windows with the recorder on:
 ``launch_ms`` (``chain.run`` less its ``fetch.queue``),
 ``fetch_queue_ms``, ``fetch_wait_ms`` (``fetch.wait``, the limbs'
 ``wait_ms``), ``view_ms`` (``fetch.view``), ``send_ms`` (``api.send``),
-``call_self_ms`` (``api.call`` less its children), ``prologue_dev_ms``,
+``redo_ms`` (``stream.redo``: an asym call's rows whose ternary queue
+fell short, encrypted again; ``redo_calls`` counts the calls that had
+one), ``call_self_ms`` (``api.call`` less its children), ``prologue_dev_ms``,
 ``step_dev_ms`` and ``copy_dev_ms`` (the card's ``dev.*`` intervals
 summed over the call's limbs); per limb, the step's and the copy's
 device ms, and the card's idle time before each step (``step_gap_ms``:
@@ -76,6 +78,7 @@ SPAN_METRICS = {            # metric: the span names it sums over a call
     "prologue_dev_ms": ("dev.prologue",),
     "step_dev_ms": ("dev.step",),
     "copy_dev_ms": ("dev.copy",),
+    "redo_ms": ("stream.redo",),
 }
 
 
@@ -122,6 +125,8 @@ def per_call(spans) -> dict:
         rows["call_self_ms"].append(self_ms(root[0], group))
         places.update(self_places(root[0], group))
         rows["call_ms"].append(root[0].ms)
+        rows["redo_calls"].append(any(s.name == "stream.redo"
+                                      for s in group))
         steps = sorted((s for s in group if s.name == "dev.step"),
                        key=lambda s: s.limb)
         prologue = [s for s in group if s.name == "dev.prologue"]
@@ -137,6 +142,7 @@ def per_call(spans) -> dict:
                 limbs[s.limb]["copy_ms"].append(s.ms)
     out = {k: statistics.fmean(v) for k, v in rows.items()}
     out["calls"] = len(rows["call_ms"])
+    out["redo_calls"] = sum(rows["redo_calls"])
     out["call_self_by_place"] = {k: v / max(out["calls"], 1)
                                  for k, v in places.most_common()}
     out["limbs"] = {j: {k: statistics.fmean(v) for k, v in d.items()}
@@ -257,7 +263,7 @@ def card() -> dict:
 
 SPAN_NAMES = {"api.call", "api.seed_pack", "api.upload", "api.send",
               "chain.run", "fetch.queue", "fetch.wait", "fetch.view",
-              "registry.capture",
+              "stream.redo", "registry.capture",
               "registry.evict", "kernels.load"}
 
 

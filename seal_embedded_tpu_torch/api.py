@@ -38,7 +38,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .ckks.asym import gen_pk_batch, make_fused_asym_encryptor
+from .ckks.asym import (gen_pk_batch, make_fused_asym_encryptor,
+                        redo_overflowed)
 from .ckks.fast import make_fused_encryptor
 from .ckks.sym import make_decryptor
 from .config import Parms, default_parms
@@ -267,7 +268,10 @@ def se_encrypt_seeded(ctx: SEContext, values: np.ndarray,
     receiver expands c1 via ckks.limbwise.expand_c1 (the reference's
     unfinished SE_ENABLE_SYM_SEED_CT, seal_embedded.c:184-194).
     Returns the encryptor's dict of tensors on ctx.device: c0, c1 int64
-    (L, B, n), pt, pte int64 (B, n), ok (B,).
+    (L, B, n), pt, pte int64 (B, n), ok (B,).  An asym call's rows whose
+    ternary draw's bounded queue fell short are encrypted again exactly
+    and written into the dict before anything is sent or returned
+    (asym.redo_overflowed): ok is false only where the encode overflowed.
     """
     values = np.atleast_2d(np.asarray(values, dtype=np.float32))
     B = values.shape[0]
@@ -292,7 +296,9 @@ def se_encrypt_seeded(ctx: SEContext, values: np.ndarray,
     else:
         if ctx._asym_fn is None:
             raise ValueError("asymmetric encryption needs the public key")
-        out = ctx._asym_fn(v, *ctx._pk, _seed_words_batch(seeds, dev))
+        words = _seed_words_batch(seeds, dev)
+        out = ctx._asym_fn(v, *ctx._pk, words)
+        _write_exact_rows(ctx, out, v, words)
 
     if send is not None:
         # Sanity check before anything leaves the device: every ciphertext
@@ -314,6 +320,24 @@ def se_encrypt_seeded(ctx: SEContext, values: np.ndarray,
                     send(serialize.ct_component_bytes(c0[i, b]))
                     send(serialize.ct_component_bytes(c1[i, b]))
     return out
+
+
+def _write_exact_rows(ctx: SEContext, out: dict, values, seed_words) -> None:
+    """An asym batch's rows whose ternary queue fell short (its
+    ternary_ok, taken out of `out`), encrypted again exactly
+    (asym.redo_overflowed) and written over those rows of `out`."""
+    enc = ctx._asym_fn.encryptor
+    redo = redo_overflowed(enc, values, seed_words,
+                           lambda: enc.key(*ctx._pk),
+                           out.pop("ternary_ok").cpu().numpy())
+    if redo is None:
+        return
+    rows, fixed = redo
+    rows = torch.as_tensor(rows, device=out["ok"].device)
+    for k in ("c0", "c1"):
+        out[k][:, rows] = fixed[k]
+    for k in ("pt", "pte", "ok"):
+        out[k][rows] = fixed[k]
 
 
 def _canon_check(parms: Parms):

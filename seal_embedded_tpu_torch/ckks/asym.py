@@ -12,6 +12,12 @@ Port of ``seal_embedded_tpu/ckks/asym.py`` (ckks_asym.c:159-286):
   limbs go through kernel KA in one launch, at every degree, straight
   from the signed (B, n) u, e1 and the int64 pte (KA maps and reduces
   them per limb as it loads them).
+* the ternary draw's bounded queue (sp.TERNARY_QUEUE_CAP refills a
+  96-byte block) falls short for about 1.5e-7 of the blocks, where the C
+  loop redraws without bound.  The batch flags those rows apart from the
+  encode's overflow (``ternary_ok``), and the API's asym entries encrypt
+  them again exactly (``redo_overflowed``), so that every seed gives the
+  C reference's bits.
 
 On CPU tensors every kernel wrapper runs its plain version, so the same
 module is the reference path of the tests.
@@ -19,6 +25,7 @@ module is the reference path of the tests.
 
 from __future__ import annotations
 
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -32,6 +39,7 @@ from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
 from ..ops.kernels.ntt import ntt_asym_from_signed, ntt_fwd
 from ..ops.ntt import ntt_tables_stacked
+from ..utils import timing
 from .fast import EncryptorBase
 
 
@@ -50,7 +58,9 @@ class AsymEncryptor(EncryptorBase):
     Without them the key is zero until set_key gives one.
     forward(values f32 (B, <= n/2), seed_words int64 (B, 16) u32 private
     PRNG seeds) returns a dict with c0, c1 int64 (L, B, n) u32 values, pt
-    and pte int64 (B, n) and ok bool (B,), the layouts of the JAX function.
+    and pte int64 (B, n) and ok bool (B,), the layouts of the JAX function,
+    and ternary_ok bool (B,), false where the ternary draw's bounded
+    queue fell short (ok is false there too).
     """
 
     def __init__(self, parms: Parms, pk0=None, pk1=None, device=CUDA):
@@ -79,23 +89,40 @@ class AsymEncryptor(EncryptorBase):
         for name, t in zip(KEY_BUFFERS, self.key(pk0, pk1)):
             getattr(self, name).copy_(t)
 
-    def forward(self, values, seed_words, key=None):
-        """The batch under `key` (a key()), the encryptor's own if None."""
-        pt, pte, u, e1, ok = self.prologue(values, seed_words)
+    def forward(self, values, seed_words, key=None, exact=False):
+        """The batch under `key` (a key()), the encryptor's own if None;
+        with exact, the ternary draw is sample_ternary_exact (see
+        draws)."""
+        pt, pte, u, e1, ok, ternary_ok = self.draws(values, seed_words,
+                                                    exact)
         c0, c1 = self.combine(u, e1, pte, key=key)
-        return {"c0": c0, "c1": c1, "pt": pt, "pte": pte, "ok": ok}
+        return {"c0": c0, "c1": c1, "pt": pt, "pte": pte,
+                "ok": ok & ternary_ok, "ternary_ok": ternary_ok}
 
     def prologue(self, values, seed_words):
+        """draws, its two flags folded into one: (pt, pte, u, e1, ok)."""
+        pt, pte, u, e1, ok, ternary_ok = self.draws(values, seed_words)
+        return pt, pte, u, e1, ok & ternary_ok
+
+    def draws(self, values, seed_words, exact=False):
         """Encode (KE), then the private stream's draws, counters chaining
         u -> e0 -> e1 (ckks_asym.c:173-203): (pt, pte = pt + e0, u, e1
-        int64 (B, n), ok (B,))."""
+        int64 (B, n), the encode's ok and the ternary draw's ok (B,)).
+        With exact the ternary draw redraws without bound
+        (sp.sample_ternary_exact: eager, the host reads each block's
+        flags) and its ok is true."""
         n = self.parms.degree
         pt, ok = self.encode(values)
         counter = sp.counter_zero((values.shape[0],), values.device)
-        u, counter, ok_t = sp.sample_ternary(seed_words, counter, n)
+        if exact:
+            u, counter = sp.sample_ternary_exact(seed_words, counter, n)
+            ternary_ok = torch.ones_like(ok)
+        else:
+            u, counter, ternary_ok = sp.sample_ternary(seed_words, counter,
+                                                       n)
         e0, counter = sp.sample_cbd(seed_words, counter, n)
         e1, counter = sp.sample_cbd(seed_words, counter, n)
-        return pt, pt + e0, u, e1, ok & ok_t
+        return pt, pt + e0, u, e1, ok, ternary_ok
 
     def combine(self, u, e1, pte, limbs=slice(None), key=None):
         """(c0, c1) (l, B, n) of the limbs `limbs` (a slice of the
@@ -109,6 +136,42 @@ class AsymEncryptor(EncryptorBase):
             u, e1, pte, self.ntt_op[limbs], self.ntt_quot[limbs],
             self.q[limbs], self.r0[limbs], self.r1[limbs], pk0, pk0_quot,
             pk1, pk1_quot)
+
+
+# Since the process began: the asym messages the API's entries encrypted
+# ("messages") and the rows among them encrypted again ("rows"), counted
+# by redo_overflowed.
+_redo = {"messages": 0, "rows": 0}
+_redo_lock = threading.Lock()
+
+
+def redo_counts() -> dict:
+    """{"messages", "rows"}: the API's asym messages since the process
+    began and the rows of them redo_overflowed encrypted again."""
+    with _redo_lock:
+        return dict(_redo)
+
+
+def redo_overflowed(enc: AsymEncryptor, values, seed_words, key,
+                    ternary_ok: np.ndarray):
+    """The rule of every asym entry of the API for a call's rows whose
+    ternary draw's bounded queue fell short (ternary_ok false, a host
+    array): those rows alone encrypted again, eagerly on `enc`'s device
+    with the port's kernels, the ternary draw exact (forward with exact;
+    a ``stream.redo`` span), under key() (a callable giving enc.key()'s
+    tuple, called only then).  The caller writes them over the call's
+    outputs before it hands any of them out.  values, seed_words: the
+    call's inputs on the device.  Returns (rows int64 (r,), the rows'
+    forward dict), or None where no row fell short."""
+    rows = np.flatnonzero(~ternary_ok)
+    with _redo_lock:
+        _redo["messages"] += len(ternary_ok)
+        _redo["rows"] += len(rows)
+    if not len(rows):
+        return None
+    with timing.span("stream.redo"):
+        idx = torch.as_tensor(rows, device=values.device)
+        return rows, enc(values[idx], seed_words[idx], key(), exact=True)
 
 
 def gen_pk_batch(sk_signed, pk_seed_words, ep, parms: Parms):

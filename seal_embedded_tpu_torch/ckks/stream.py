@@ -14,7 +14,11 @@ the port's kernels at (1, B, n):
   per-limb buffers are in walk order (reversed for ``order="reverse"``);
 * asym: the prologue runs the encode + ternary + CBD draws of an
   ``AsymEncryptor`` and computes the key's Shoup quotients, handing the
-  key on with them; each limb runs KA on its row with that key.
+  key on with them; each limb runs KA on its row with that key.  Each
+  limb carries the encode's and the ternary draw's flags apart; at the
+  first limb the rows whose ternary queue fell short are encrypted again
+  exactly (``asym.redo_overflowed``) and written into every limb before
+  it is yielded.
 
 The prologue and the steps run as a ``graphs.Chain``: on the card the
 first call of an input signature captures the prologue's graph and one
@@ -60,7 +64,7 @@ from ..graphs import Chain, eager_chain, to_device
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
 from ..utils import timing
-from .asym import AsymEncryptor, key_tensor
+from .asym import AsymEncryptor, key_tensor, redo_overflowed
 from .fast import SymEncryptor
 from .limbwise import ORDERS, LimbscanEncryptor
 
@@ -119,17 +123,21 @@ class _HostFetch:
             return prime_idx, q, host, done
 
 
-def _fetch(item) -> dict:
+def _fetch(item, fix=None) -> dict:
     """Wait for one limb's copy (an item of _HostFetch.start) and return
     its dict; the host waits on that limb's copy event only, and its wait
     (``fetch.wait``) is the dict's wait_ms.  While it waits, it reads the
-    card's intervals that have ended (timing.read_card_marks).  The ok
+    card's intervals that have ended (timing.read_card_marks).  fix, where
+    given (an asym call's _ExactRows), rewrites the limb's rows whose
+    ternary queue fell short and gives the flags that remain.  The ok
     check and the host views are a ``fetch.view`` span."""
     prime_idx, q, (c0, c1, ok), done = item
     with timing.span("fetch.wait", timed=True) as wait:
         timing.read_card_marks()
         if done is not None:
             done.synchronize()
+    if fix is not None:
+        ok = fix(prime_idx, c0, c1, ok)
     with timing.span("fetch.view"):
         ok = bool(ok.numpy().all())
         if not ok:
@@ -141,20 +149,20 @@ def _fetch(item) -> dict:
                 "wait_ms": 0.0 if done is None else wait.ms}
 
 
-def _pipeline(outs, walk, device: torch.device) -> Iterator[dict]:
+def _pipeline(outs, walk, device: torch.device, fix=None) -> Iterator[dict]:
     """Drive an iterator of per-limb (c0, c1, ok) device results, the
     limbs of `walk` ((prime_idx, q) each) in turn, keeping one limb in
     flight: limb i is fetched only after limb i+1 has been queued (the
-    eager stream)."""
+    eager stream); fix as _fetch takes it."""
     fetch = _HostFetch(device)
     pending = []
     for (prime_idx, q), parts in zip(walk, outs):
         pending.append(fetch.start(prime_idx, q, parts))
         del parts   # the limb's device copy is freed once fetched
         if len(pending) > 1:
-            yield _fetch(pending.pop(0))
+            yield _fetch(pending.pop(0), fix)
     while pending:
-        yield _fetch(pending.pop(0))
+        yield _fetch(pending.pop(0), fix)
 
 
 def _host_form(c0, c1, ok, out=None):
@@ -200,6 +208,11 @@ class _SymSteps:
         return ((pte, ok, ntt_s, share_words, counter),
                 _host_form(c0[0], a, ok & ok_u, out))
 
+    def exact_rows(self, args):
+        """The sym draw is exact: no rows to encrypt again."""
+        return None
+
+
 class _AsymSteps:
     """The asym stream's prologue and per-limb step on an AsymEncryptor
     whose buffers are in chain order; limb j of the walk is prime
@@ -211,18 +224,57 @@ class _AsymSteps:
         self.nsteps = len(idxs)
 
     def prologue(self, values, pk0, pk1, seed_words):
-        """Encode and the private stream's draws: pte, u, e1 (B, n) and ok
-        (B,), then the key (pk0, pk1 int64 (L, n)) with its quotients, all
-        handed on to the limbs (so no state of the shared encryptor
-        holds a caller's key)."""
-        return (*self.enc.prologue(values, seed_words)[1:],
+        """Encode and the private stream's draws: pte, u, e1 (B, n) and
+        the flags (B, 2) (the encode's ok, the ternary draw's), then the
+        key (pk0, pk1 int64 (L, n)) with its quotients, all handed on to
+        the limbs (so no state of the shared encryptor holds a caller's
+        key)."""
+        pte, u, e1, ok, ternary_ok = self.enc.draws(values, seed_words)[1:]
+        return (pte, u, e1, torch.stack([ok, ternary_ok], dim=-1),
                 self.enc.key(pk0, pk1))
 
     def step(self, j, carry, out=None):
-        pte, u, e1, ok, key = carry
+        pte, u, e1, flags, key = carry
         i = self.idxs[j]
         c0, c1 = self.enc.combine(u, e1, pte, slice(i, i + 1), key)
-        return carry, _host_form(c0[0], c1[0], ok, out)
+        return carry, _host_form(c0[0], c1[0], flags, out)
+
+    def exact_rows(self, args):
+        """A call's _ExactRows; args: the prologue's (values, pk0, pk1,
+        seed_words)."""
+        return _ExactRows(self.enc, args)
+
+
+class _ExactRows:
+    """One asym call's limbs under asym.redo_overflowed: at its first
+    limb the rows whose ternary queue fell short are encrypted again
+    (host copies of their c0, c1 kept, int32 (L, r, n)); each limb's
+    rows are then written from them before the limb is handed on, and the
+    encode's flags are what the limb's ok check reads."""
+
+    def __init__(self, enc: AsymEncryptor, args):
+        self.enc = enc
+        self.args = args
+        self.rows = None
+
+    def __call__(self, prime_idx, c0, c1, flags):
+        """c0, c1 int32 (B, n), flags bool (B, 2), host tensors of limb
+        `prime_idx`; returns its encode flags (B,)."""
+        if self.rows is None:
+            values, pk0, pk1, seed_words = self.args
+            redo = redo_overflowed(self.enc, values, seed_words,
+                                   lambda: self.enc.key(pk0, pk1),
+                                   flags[:, 1].numpy())
+            self.rows = ()
+            if redo is not None:
+                rows, fixed = redo
+                self.rows = torch.as_tensor(rows)
+                self.c0, self.c1 = (fixed[k].to(torch.int32).cpu()
+                                    for k in ("c0", "c1"))
+        if len(self.rows):
+            c0[self.rows] = self.c0[prime_idx]
+            c1[self.rows] = self.c1[prime_idx]
+        return flags[:, 0]
 
 
 class Stream:
@@ -237,11 +289,12 @@ class Stream:
 
     def __call__(self, *args) -> Iterator[dict]:
         fetch = _HostFetch(self.chain.device)
+        fix = self.steps.exact_rows(args)
 
         def start(j, parts, ready):
             item = fetch.start(*self.walk[j], parts, ready)
             return item, item[-1]
-        return map(_fetch, self.chain(args, start))
+        return (_fetch(item, fix) for item in self.chain(args, start))
 
     def scrub(self) -> None:
         """Zero every copy of a caller's key the stream keeps: the chain's
@@ -308,9 +361,11 @@ def asym_stream_with(enc: AsymEncryptor, values, seed_words,
     included)."""
     idxs = _walk(enc.parms.nprimes, order)
     steps = _AsymSteps(enc, idxs)
+    args = (values, enc.pk0, enc.pk1, seed_words)
     return _pipeline(eager_chain(steps.prologue, steps.step, steps.nsteps,
-                                 (values, enc.pk0, enc.pk1, seed_words)),
-                     _limbs(enc.parms, idxs), values.device)
+                                 args),
+                     _limbs(enc.parms, idxs), values.device,
+                     steps.exact_rows(args))
 
 
 def sym_encrypt_stream(values, sk_signed, share_words, err_words,
@@ -341,9 +396,12 @@ def asym_encrypt_stream(values, pk0, pk1, seed_words, parms: Parms,
                         order: str = "forward",
                         device=None) -> Iterator[dict]:
     """Per-prime streaming asymmetric encrypt; same contract as
-    sym_encrypt_stream.  pk0/pk1: (L, n) u32 values in NTT form, tensors
-    or arrays, moved to `device` as int64; the compiled stream of (parms,
-    order, device) (asym_stream) hands them on as its key."""
+    sym_encrypt_stream, but for the ternary draw: rows whose bounded
+    queue fell short are encrypted again exactly (asym.redo_overflowed)
+    and written into every limb, so only an encode overflow raises.
+    pk0/pk1: (L, n) u32 values in NTT form, tensors or arrays, moved to
+    `device` as int64; the compiled stream of (parms, order, device)
+    (asym_stream) hands them on as its key."""
     check_encode_mode(encode_mode)
     dev = _device(values, device)
     return asym_stream(parms, order, dev)(
@@ -362,8 +420,12 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
     shareable stream, err_seeds = the private stream); asymmetric ones the
     compiled asym stream with its public key as the key handed on in the
     prologue (err_seeds = the private stream sampling u/e0/e1;
-    share_seeds unused).  Both are cached per (parms, order, device), so
-    a second call replays the chain the first one captured; the context
+    share_seeds unused; rows whose ternary draw's bounded queue fell
+    short are encrypted again exactly at the first limb, a
+    ``stream.redo`` span, and written into every limb before it is sent
+    or returned: asym.redo_overflowed).  Both are cached per (parms,
+    order, device), so a second call replays the chain the first one
+    captured; the context
     notes the streams it used, and se_cleanup zeroes their copies of its
     keys.  The seeds are required: a missing list raises ValueError (the
     JAX function dies with a TypeError in its seed conversion).  The

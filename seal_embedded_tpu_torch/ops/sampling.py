@@ -9,7 +9,10 @@ device/lib/sample.c), with the same PRNG byte-consumption pattern:
   plus a rank-select reproduces the loop with no sequential step.
 * The ternary sampler does the same per 96-byte block, with 8 one-byte
   refills; its blocks run in sequence, since each block's counter
-  depends on the rejections of the blocks before it.
+  depends on the rejections of the blocks before it.  Its exact form
+  (``sample_ternary_exact``) runs a block whose 8 refills fell short
+  again with twice the refills, until none does: the C loop's unbounded
+  redraw.
 * Counters are u64 values carried as int64 (..., 2) (lo, hi) u32 pairs,
   with the carry into hi on every offset path.
 
@@ -27,7 +30,8 @@ from .kernels.keccak import cbd_values, keccak_squeeze
 from .modarith import _q, as_mod, barrett32
 
 # One-byte refills drawn per 96-byte ternary block (sample.c:228-233):
-# more than 8 rejected bytes (p = 2/256 each) in one block only clears ok.
+# a block that needs more (p = 1.53e-7 a block) only clears ok, unless
+# the draw is exact (sample_ternary_exact).
 TERNARY_QUEUE_CAP = 8
 
 
@@ -277,17 +281,20 @@ def sample_uniform_limbs(seed_words, moduli, n: int,
     return torch.stack(a), ok
 
 
-def _ternary_block(seed_words, counter, count_here: int):
+def _ternary_block(seed_words, counter, count_here: int,
+                   cap: int | None = None):
     """One 96-byte ternary block + its rejection queue (sample.c:223-241):
-    bytes >= 0xFE are redrawn from one-byte refills at counters c+1, c+2,
-    ...  Returns ({-1, 0, 1} int64 (..., 96), next_counter, ok)."""
+    bytes >= 0xFE are redrawn from `cap` one-byte refills at counters
+    c+1, c+2, ... (TERNARY_QUEUE_CAP when None).  Returns ({-1, 0, 1}
+    int64 (..., 96), next_counter, ok)."""
     dev = counter.device
     base_bytes = words_to_bytes(_squeeze(seed_words, counter, 1, nwords=24))
     rejected = base_bytes >= 0xFE
 
-    qvals = _squeeze(seed_words, counter, 1, nwords=1,
-                     per_seed=TERNARY_QUEUE_CAP,
-                     start=1)[..., 0] & 0xFF   # first byte of each refill
+    cap = cap or TERNARY_QUEUE_CAP
+    # The first byte of each refill, (..., cap) (a cap of 1 included).
+    qvals = _squeeze(seed_words, counter, 1, nwords=1, per_seed=cap,
+                     start=1).reshape(counter.shape[:-1] + (cap,)) & 0xFF
     qacc = qvals < 0xFE
 
     # The reference touches only the first count_here bytes of a tail block
@@ -298,6 +305,12 @@ def _ternary_block(seed_words, counter, count_here: int):
     return final % 3 - 1, _c_add(counter, 1 + consumed), ok
 
 
+def _block_sizes(n: int) -> list[int]:
+    """The ternary draw's blocks: n // 96 of 96 bytes, then n % 96."""
+    nfull, tail = divmod(n, 96)
+    return [96] * nfull + ([tail] if tail else [])
+
+
 def sample_ternary(seed_words, counter, n: int):
     """sample_small_poly_ternary_prng_96 (sample.c:218-242), batched.
 
@@ -305,14 +318,36 @@ def sample_ternary(seed_words, counter, n: int):
     previous block's rejections), then a tail block of n % 96 bytes.
     Returns (signed {-1, 0, 1} int64 (..., n), next_counter, ok).
     """
-    nfull, tail = divmod(n, 96)
     ok = torch.ones(counter.shape[:-1], dtype=torch.bool, device=counter.device)
     blocks = []
-    for count_here in [96] * nfull + ([tail] if tail else []):
+    for count_here in _block_sizes(n):
         vals, counter, ok_b = _ternary_block(seed_words, counter, count_here)
         blocks.append(vals[..., :count_here])
         ok = ok & ok_b
     return torch.cat(blocks, dim=-1), counter, ok
+
+
+def sample_ternary_exact(seed_words, counter, n: int):
+    """sample_ternary with the C loop's unbounded redraw, for B streams:
+    seed_words (B, 16), counter (B, 2).  A block whose TERNARY_QUEUE_CAP
+    refills hold fewer accepted bytes than it rejected is drawn again,
+    for those streams, with twice the refills, until every stream's
+    block is whole; a block the cap held keeps its bits.  The host reads
+    each block's flags.  Returns (signed {-1, 0, 1} int64 (B, n),
+    next_counter), every stream drawn whole."""
+    blocks = []
+    for count_here in _block_sizes(n):
+        vals, after, ok = _ternary_block(seed_words, counter, count_here)
+        cap = TERNARY_QUEUE_CAP
+        while not bool(ok.all()):
+            cap *= 2
+            short = (~ok).nonzero()[:, 0]
+            v, a, o = _ternary_block(seed_words[short], counter[short],
+                                     count_here, cap)
+            vals[short], after[short], ok[short] = v, a, o
+        blocks.append(vals[..., :count_here])
+        counter = after
+    return torch.cat(blocks, dim=-1), counter
 
 
 def ternary_to_modq_any(signed, q):
