@@ -147,7 +147,13 @@ line each:
    timed beside the default chain's at the same (n, L = 3) (CUDA events
    in alternated pairs, enc/s, busy, idle share, footprint; the default
    sym batch's golden rows at both ends); the rank-select and KK's queue
-   of one limb alone on both chains;
+   of one limb alone on both chains; KK's uniform role (the base squeeze,
+   rank-select and barrett32 of a limb in one launch) bit-equal to its
+   plain version on 1024 streams (counters at 2^32 - 1 and 2^64 - 1), on
+   every limb at 4096/3, the first and last at 16384/13 and chain C's
+   first prime at both degrees, with ok-false rows (a queue of 8, chain
+   C under the default cap), timed alone against its bound; the compiled
+   sym streams at 4096/3 and 16384/13 launch it once a limb a call;
 
 11. entry: ``seal_embedded_tpu_torch.entry.entry()`` (the compiled
    ``sym_encrypt_batch`` at n = 4096, L = 3, B = 4) on the card, its
@@ -315,8 +321,9 @@ INT_OPS_PER_MIX_CHAIN = {"keccak": 3, "ntt": 2}
 # The kernels each path must launch (the names of ops/kernels/counters.py):
 # sym's c0 comes from KN's from-pte entry, sym_encrypt_batch's from KN
 # unfused and a torch combine.
-SYM_PATH = ("keccak", "keccak_cbd", "ntt", "ntt_pte", "encode")
-TABLE_PATH = ("keccak", "keccak_cbd", "ntt", "encode")
+SYM_PATH = ("keccak", "keccak_uniform", "keccak_cbd", "ntt", "ntt_pte",
+            "encode")
+TABLE_PATH = ("keccak", "keccak_uniform", "keccak_cbd", "ntt", "encode")
 ASYM_PATH = ("keccak", "keccak_cbd", "ntt_asym", "encode")
 
 
@@ -2661,6 +2668,136 @@ def custom_sampler_alone(n, batch, share, dev, smi):
           + f"; {smi}")
 
 
+UNIFORM_B = 1024
+UNIFORM_SEED = 20
+UNIFORM_SMALL_CAP = 8     # a queue that falls short on every row
+KU = ("seal_embedded_tpu/ops/sampling.py:277 sample_uniform (:211 "
+      "_rank_select, :169 _rejected_positions; ops/modarith.py:89 "
+      "barrett32)")
+
+
+def uniform_inputs(n, dev, seed=UNIFORM_SEED):
+    """UNIFORM_B streams' seed words and counters made from numpy seed
+    `seed` + n, rows 0..2 at counters 2^32 - 1, 2^64 - 1 and 0."""
+    rng = np.random.default_rng(seed + n)
+    seeds = torch.as_tensor(rng.integers(0, 2 ** 32, (UNIFORM_B, 16)),
+                            device=dev)
+    ctr = torch.as_tensor(rng.integers(0, 2 ** 32, (UNIFORM_B, 2)),
+                          device=dev)
+    ctr[:3] = torch.tensor([[2 ** 32 - 1, 0], [2 ** 32 - 1, 2 ** 32 - 1],
+                            [0, 0]])
+    return seeds, ctr
+
+
+def uniform_check(name, seeds, ctr, n, q, cap):
+    """KK's uniform role (kernels.keccak.uniform_draw) on one limb against
+    its plain version (sampling.uniform_plain: the base squeeze, the
+    torch rank-select and barrett32 on the card), values, next counters
+    and ok bit for bit, on the same queue.  Returns (the role's outputs,
+    a fn that launches it alone, the plain ms, the queue)."""
+    m = ma.as_mod(q)
+    queue = k_keccak.keccak_squeeze(seeds, ctr, 1, 1, cap, 1).reshape(-1, cap)
+    rule = sp._chunk_rule(n, cap)
+
+    def fn():
+        return k_keccak.uniform_draw(seeds, ctr, queue, n, m.q, m.r1,
+                                     m.max_multiple, *rule)
+    got = fn()
+    want, pms = timed_plain(lambda: sp.uniform_plain(seeds, ctr, queue, n,
+                                                     m))
+    for part, g, w in zip(("a", "next counter", "ok"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: the uniform role's {part} "
+                                 f"differs from its plain version")
+    return got, fn, pms, queue
+
+
+def uniform_role(dev, smi):
+    """Phase 10's KK uniform role (kernels.keccak.uniform_draw) against
+    its plain version on the card, UNIFORM_B streams, rows 0..2 at
+    counters 2^32 - 1, 2^64 - 1 and 0: every limb of the default chain at
+    4096/3 (the counter carried from limb to limb, as the stream does),
+    the first and last limbs at 16384/13, and chain C's first prime
+    (536903681, 12.5% of the words rejected) at both degrees under its
+    wide cap; ok-false rows from a queue of UNIFORM_SMALL_CAP, and from
+    chain C's prime under the default chain's cap (every chunk past its
+    160).  Then the compiled sym streams at 4096/3 and 16384/13 launch
+    the role once a limb a call.  Returns the kernel rows (timed alone
+    later, beside their bounds)."""
+    rows = []
+    kk = "seal_embedded_tpu_torch/csrc/keccak.cu"
+    for n, nprimes in ((4096, 3), (16384, 13)):
+        chain = default_parms(n, nprimes).moduli
+        cap = sp.queue_cap_for(n, chain)
+        wide = sp.queue_cap_for(n, (CUSTOM_CHAIN[0],))
+        seeds, ctr = uniform_inputs(n, dev)
+        limbs = (list(enumerate(chain)) if n == 4096
+                 else [(0, chain[0]), (nprimes - 1, chain[-1])])
+        c = ctr
+        for i, q in limbs:
+            got, fn, pms, queue = uniform_check(
+                f"uniform n={n} limb {i}", seeds, c, n, q, cap)
+            if not bool(got[2].all()):
+                raise AssertionError(f"uniform n={n} limb {i}: ok false on "
+                                     f"a default chain")
+            if i == 0:
+                ms = cuda_time_ms(fn, TIME_ITERS)
+                nb = -(-n // 34)
+                rows.append(kernel_row(
+                    f"uniform_draw n={n} q={q}", kk, KU, "keccak_uniform", 0,
+                    fn, ms, pms, f"{UNIFORM_B} streams x {nb} blocks, cap "
+                    f"{cap}", ("keccak", UNIFORM_B * nb),
+                    u32_bytes(seeds, c, queue, *got[:2]) + got[2].numel()))
+            c = got[1] if n == 4096 else c
+        for name, q, qcap, ok_rows in (
+                ("queue of 8", chain[0], UNIFORM_SMALL_CAP, 0),
+                (f"chain C q={CUSTOM_CHAIN[0]}, cap {wide}", CUSTOM_CHAIN[0],
+                 wide, UNIFORM_B),
+                (f"chain C q={CUSTOM_CHAIN[0]}, the default cap {cap}",
+                 CUSTOM_CHAIN[0], cap, 0)):
+            got, fn, pms, queue = uniform_check(f"uniform n={n} {name}",
+                                                seeds, ctr, n, q, qcap)
+            if int(got[2].sum()) != ok_rows:
+                raise AssertionError(f"uniform n={n} {name}: "
+                                     f"{int(got[2].sum())} rows ok, want "
+                                     f"{ok_rows}")
+            if name.startswith("chain C") and ok_rows:
+                ms = cuda_time_ms(fn, TIME_ITERS)
+                nb = -(-n // 34)
+                rows.append(kernel_row(
+                    f"uniform_draw n={n} q={q}", kk, KU, "keccak_uniform", 0,
+                    fn, ms, pms, f"{UNIFORM_B} streams x {nb} blocks, cap "
+                    f"{qcap}", ("keccak", UNIFORM_B * nb),
+                    u32_bytes(seeds, ctr, queue, *got[:2]) + got[2].numel()))
+        print(f"[10 uniform] n={n}: KK's uniform role bit-equal to its plain "
+              f"version (values, next counters, ok) on {UNIFORM_B} streams, "
+              f"counters 2^32 - 1, 2^64 - 1 and 0 among them: limbs "
+              f"{[i for i, _ in limbs]} of the default chain (cap {cap}), "
+              f"chain C's {CUSTOM_CHAIN[0]} at cap {wide} (every row ok), "
+              f"ok false on every row with a queue of {UNIFORM_SMALL_CAP} "
+              f"and on chain C at the default cap; {smi}")
+    # The compiled sym streams: one launch of the role a limb a call.
+    for n, nprimes in ((4096, 3), (16384, 13)):
+        parms = default_parms(n, nprimes)
+        values, sk, share, err = custom_inputs(n, UNIFORM_B)[:4]
+        args = state_to_device(values, sk, share, err, dev)
+
+        def streamed():
+            return list(stream.sym_encrypt_stream(*args, parms, "f64",
+                                                  "forward"))
+        streamed()
+        _, counts, _ = counted_run(streamed)
+        if counts["keccak_uniform"] != nprimes:
+            raise AssertionError(f"sym stream n={n} L={nprimes}: "
+                                 f"{counts['keccak_uniform']} launches of "
+                                 f"the uniform role a call, want {nprimes}")
+        stream.sym_stream(parms, "forward", dev).chain.clear()
+        print(f"[10 uniform] compiled sym stream n={n} L={nprimes} "
+              f"B={UNIFORM_B}: the uniform role launched {nprimes} times a "
+              f"call, once a limb (launches {counts}); {smi}")
+    return rows
+
+
 def custom_row(n, sym_b, asym_b, sym_names, asym_names, mesh, dev, smi):
     """One phase 10 row at degree n on the custom chain: the compiled
     fused sym batch (sym_b) and asym batch (asym_b, pk from gen_pk_batch)
@@ -2820,6 +2957,7 @@ def phase_custom(dev, smi, sm_hz):
             r, k = custom_row(*row, mesh, dev, smi)
             runs.update(r)
             rows += k
+    rows += uniform_role(dev, smi)
     set_kernel_alone_ms(rows)
     for r in rows:
         print(f"[10 kernels] {bound_line(r, sm_hz)}; "

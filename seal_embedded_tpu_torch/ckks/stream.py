@@ -185,10 +185,14 @@ class _SymSteps:
         self.nsteps = len(enc.moduli)
 
     def prologue(self, values, sk_signed, share_words, err_words):
-        """Encode + CBD error (pt freed), ntt(s) of every limb and the
-        share counter at 0: the hand-offs of the limb steps."""
-        pte, ok = self.enc.encode_with_error(values, err_words)[1:]
+        """ntt(s) of every limb, encode + CBD error (pt freed) and the
+        share counter at 0: the hand-offs of the limb steps.  ntt(s) comes
+        first: from L = 9 at n = 16384 its (L, n) int64 passes 1 MiB, and
+        made after the encode's (B, n) temporaries were freed it would
+        split one of them, so that each step's (B, n) scratch would need
+        one block more of the pool."""
         ntt_s = self.enc.ntt_secret(sk_signed)                 # (L, n)
+        pte, ok = self.enc.encode_with_error(values, err_words)[1:]
         counter = sp.counter_zero((values.shape[0],), values.device)
         return pte, ok, ntt_s, share_words, counter
 

@@ -1,13 +1,15 @@
 // Kernel KK: SHAKE-256 squeezes of (seed || counter_le8) streams, and the
-// CBD error values drawn from them.
+// CBD error values and the uniform draw drawn from them.
 //
 // Replaces seal_embedded_tpu/ops/kernels/keccak.py: _squeeze_call / _kernel
 // (K1, a multi-block squeeze, the uniform sampler's base draw) and
 // _squeeze_call_1blk / _kernel_1blk (K2, single-block streams that emit
 // only their first `nwords` rate words: the rejection queues, the ternary
-// blocks and the CBD error).  Every entry reads the caller's int64 seeds
-// and counters (u32 values, low 32 bits used) and writes int64 u32 words
-// or values, so the wrapper copies nothing.
+// blocks and the CBD error).  The uniform role (keccak_uniform_kernel,
+// below) runs K1's squeeze with the rank-select and barrett32 of the
+// sampler around it.  Every entry reads the caller's int64 seeds and
+// counters (u32 values, low 32 bits used) and writes int64 u32 words or
+// values, so the wrapper copies nothing.
 //
 // Streams.  Seed s (of S) has `per_seed` streams; stream j of seed s
 // absorbs counter c_s + start + j mod 2^64 (the sampler's counter
@@ -169,54 +171,44 @@ __device__ __forceinline__ uint64_t stream_counter(const long long* ctrs,
   return lane_of(ctrs + 2 * s) + off;
 }
 
-// One warp per stream, nblocks permutations, every rate word written.
-__global__ void keccak_lanes_kernel(const long long* __restrict__ seeds,
-                                    const long long* __restrict__ ctrs,
-                                    long long* __restrict__ out,
-                                    long long nseeds, int per_seed,
-                                    unsigned long long start, int nblocks) {
-  const int t = threadIdx.x & 31;
-  const long long g =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (g >= nseeds * per_seed) return;  // whole warps leave together
-  const long long s = g / per_seed;
-  const long long j = g - s * per_seed;
+// A stream's state spread over one warp: thread t holds lane t = x + 5y
+// (threads 25..31 mirror lane 0 and store nothing), with the shuffle
+// sources of its rounds, fixed for the whole stream.
+struct WarpLanes {
+  int col[4], c_prev, c_next, rho, src[3];
+  uint64_t rc_mask;
 
-  // This thread's lane (threads 25..31 mirror lane 0 and store nothing).
-  const int me = t < 25 ? t : 0;
-  const int x = me % 5, y = me / 5;
-  uint64_t a;
-  if (me < 8)
-    a = lane_of(seeds + s * 16 + 2 * me);
-  else if (me == 8)
-    a = stream_counter(ctrs, s, start + (unsigned long long)j);
-  else if (me == 9)
-    a = 0x1FULL;
-  else if (me == 16)
-    a = 0x8000000000000000ULL;
-  else
-    a = 0;
-
-  // Shuffle sources, fixed for the whole stream.
-  int col[4];
+  __device__ explicit WarpLanes(int t) {
+    const int me = t < 25 ? t : 0;
+    const int x = me % 5, y = me / 5;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) col[k] = x + 5 * ((y + 1 + k) % 5);
-  const int c_prev = (x + 4) % 5 + 5 * y, c_next = (x + 1) % 5 + 5 * y;
-  const int rho = kRho[me];
-  // pi moves lane (x', y') to (y', 2x' + 3y'): B[X, Y] comes from lane
-  // ((X + 3Y) % 5) + 5X.
-  int src[3];
+    for (int k = 0; k < 4; ++k) col[k] = x + 5 * ((y + 1 + k) % 5);
+    c_prev = (x + 4) % 5 + 5 * y;
+    c_next = (x + 1) % 5 + 5 * y;
+    rho = kRho[me];
+    // pi moves lane (x', y') to (y', 2x' + 3y'): B[X, Y] comes from lane
+    // ((X + 3Y) % 5) + 5X.
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const int X = (x + k) % 5;
-    src[k] = (X + 3 * y) % 5 + 5 * X;
+    for (int k = 0; k < 3; ++k) {
+      const int X = (x + k) % 5;
+      src[k] = (X + 3 * y) % 5 + 5 * X;
+    }
+    rc_mask = t == 0 ? ~0ULL : 0ULL;
   }
-  const uint64_t rc_mask = t == 0 ? ~0ULL : 0ULL;
-  const unsigned full = 0xffffffffu;
 
-  const int out_words = nblocks * kRateWords;
-  long long* o = out + g * out_words + 2 * t;
-  for (int b = 0; b < nblocks; ++b) {
+  // Thread t's lane after the absorb of (seed || ctr) (absorb() above).
+  __device__ static uint64_t absorbed(int t, const long long* seed,
+                                      uint64_t ctr) {
+    const int me = t < 25 ? t : 0;
+    if (me < 8) return lane_of(seed + 2 * me);
+    if (me == 8) return ctr;
+    if (me == 9) return 0x1FULL;
+    if (me == 16) return 0x8000000000000000ULL;
+    return 0;
+  }
+
+  __device__ void permute(uint64_t& a) const {
+    const unsigned full = 0xffffffffu;
 #pragma unroll 1
     for (int round = 0; round < 24; ++round) {
       // theta
@@ -235,12 +227,205 @@ __global__ void keccak_lanes_kernel(const long long* __restrict__ seeds,
       // iota
       a ^= kRoundConstants[round] & rc_mask;
     }
+  }
+};
+
+// One warp per stream, nblocks permutations, every rate word written.
+__global__ void keccak_lanes_kernel(const long long* __restrict__ seeds,
+                                    const long long* __restrict__ ctrs,
+                                    long long* __restrict__ out,
+                                    long long nseeds, int per_seed,
+                                    unsigned long long start, int nblocks) {
+  const int t = threadIdx.x & 31;
+  const long long g =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (g >= nseeds * per_seed) return;  // whole warps leave together
+  const long long s = g / per_seed;
+  const long long j = g - s * per_seed;
+  const WarpLanes lanes(t);
+  uint64_t a = WarpLanes::absorbed(
+      t, seeds + s * 16,
+      stream_counter(ctrs, s, start + (unsigned long long)j));
+
+  const int out_words = nblocks * kRateWords;
+  long long* o = out + g * out_words + 2 * t;
+  for (int b = 0; b < nblocks; ++b) {
+    lanes.permute(a);
     if (t < 17) {
       longlong2 w;
       w.x = (long long)(uint32_t)a;
       w.y = (long long)(uint32_t)(a >> 32);
       *reinterpret_cast<longlong2*>(o + b * kRateWords) = w;
     }
+  }
+}
+
+// x mod q for a u32 x and q < 2^31, r1 the high word of floor(2^64 / q)
+// (ops/modarith.py barrett32, modulo.h:43-75).
+__device__ __forceinline__ uint32_t barrett32(uint32_t x, uint32_t q,
+                                              uint32_t r1) {
+  const uint32_t t = x - __umulhi(x, r1) * q;
+  return t >= q ? t - q : t;
+}
+
+// The warp's queue in shared memory, accepted draws first, each group in
+// queue order (the rank-select's stable sort); returns the accepted count.
+__device__ int compact_queue(const long long* __restrict__ qrow,
+                             uint32_t* acc, int cap, uint32_t mm, int t) {
+  const unsigned full = 0xffffffffu, below = (1u << t) - 1;
+  int nacc = 0;
+  for (int base = 0; base < cap; base += 32) {
+    const int j = base + t;
+    nacc += __popc(__ballot_sync(full, j < cap && (uint32_t)qrow[j] < mm));
+  }
+  int na = 0, nr = 0;
+  for (int base = 0; base < cap; base += 32) {
+    const int j = base + t;
+    const uint32_t v = j < cap ? (uint32_t)qrow[j] : 0;
+    const bool is_acc = j < cap && v < mm, is_rej = j < cap && v >= mm;
+    const unsigned ba = __ballot_sync(full, is_acc);
+    const unsigned br = __ballot_sync(full, is_rej);
+    if (is_acc) acc[na + __popc(ba & below)] = v;
+    if (is_rej) acc[nacc + nr + __popc(br & below)] = v;
+    na += __popc(ba);
+    nr += __popc(br);
+  }
+  __syncwarp();
+  return nacc;
+}
+
+// The uniform draw of one limb (sample_poly_uniform, sample.c:39-57), one
+// warp per stream.  Replaces the JAX package's sample_uniform
+// (seal_embedded_tpu/ops/sampling.py:277) with its _rank_select (:211) and
+// _rejected_positions (:169), and ops/modarith.py barrett32, which the port
+// ran as KK's base squeeze plus some 40 torch passes over the (S, n) int64
+// words: at n = 16384, 1024 streams, 134 MB a pass.
+//
+// Per stream: the n u32 words of SHAKE-256(seed || c); the r-th rejected
+// word (>= max_multiple) that the chunk rule keeps takes the r-th entry of
+// the queue (the one-block draws at c + 1 .. c + cap, KK's queue launch),
+// accepted draws first, then the rejected ones, each in queue order;
+// every word reduced by barrett32 and written as int64 `a` in [0, q),
+// with the next counter c + 1 + consumed and ok.  The chunk rule
+// (ops/sampling.py _chunk_k): within each chunk of chunk_n words only the
+// first chunk_k rejections are kept, a chunk with more clears ok, and the
+// words it leaves out keep their base values; the kept positions, in
+// position order, take the queue's entries while their rank is below cap.
+// consumed is the queue index of the row's num_rejected-th accepted draw
+// plus 1 (0 with no rejection); where the queue accepts fewer draws than
+// the row rejects, ok is false and consumed is cap + 1.
+//
+// Bound on the H100: as the base squeeze, the integer rate (ceil(n / 34)
+// permutations a stream, 0.123 ms for 1024 streams at n = 16384) against
+// 134 MB of int64 `a` (0.040 ms at 3.35 TB/s); what holds it is the
+// latency of the warp's dependent rounds, as in keccak_lanes_kernel.  So
+// the design adds nothing to the rounds and no pass over memory: after
+// each permutation lanes 0..16 hold the block's 34 words, two ballots of
+// their rejection flags give each rejected word its rank (the running
+// counts before the block plus a __popc prefix; a chunk boundary falls
+// between two lanes, 4096 and 34 b being even), and a second pair the
+// ranks of the kept ones.  The default chains reject 1% to 2% of the
+// words, so a third to a half of the blocks take that path, a few dozen
+// instructions against the permutation's thousands; a block with no
+// rejection skips it.  The queue is compacted into shared memory at the
+// row's first rejection (a row without one never reads it); barrett32
+// runs in registers with __umulhi, and `a` leaves as one 16-byte store a
+// lane, coalesced.
+__global__ void keccak_uniform_kernel(
+    const long long* __restrict__ seeds, const long long* __restrict__ ctrs,
+    const long long* __restrict__ queue, long long* __restrict__ a_out,
+    long long* __restrict__ next_ctr, bool* __restrict__ ok_out,
+    long long nseeds, int n, uint32_t q, uint32_t r1, uint32_t mm, int cap,
+    int chunk_n, int chunk_k) {
+  extern __shared__ uint32_t shared_queue[];
+  const int t = threadIdx.x & 31;
+  const long long g =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (g >= nseeds) return;  // whole warps leave together
+  uint32_t* acc = shared_queue + (threadIdx.x >> 5) * cap;
+  const long long* qrow = queue + g * cap;
+  const unsigned full = 0xffffffffu, below = (1u << t) - 1;
+  const uint64_t c = lane_of(ctrs + 2 * g);
+  const WarpLanes lanes(t);
+  uint64_t a = WarpLanes::absorbed(t, seeds + g * 16, c);
+
+  // Warp-uniform walk state: rejections so far, kept ones so far, the
+  // open chunk's rejections and its end, the queue's accepted count once
+  // compacted (-1 before).
+  int rejected = 0, kept = 0, in_chunk = 0, chunk_end = chunk_n, nacc = -1;
+  bool ok = true;
+  const int nblocks = (n + kRateWords - 1) / kRateWords;
+  long long* o = a_out + g * n;
+  for (int b = 0; b < nblocks; ++b) {
+    lanes.permute(a);
+    const int first = b * kRateWords;
+    const int i0 = first + 2 * t;
+    const bool valid = t < 17 && i0 < n;  // n even: both words or none
+    uint32_t w0 = (uint32_t)a, w1 = (uint32_t)(a >> 32);
+    const bool r0 = valid && w0 >= mm, r1w = valid && w1 >= mm;
+    const unsigned b0 = __ballot_sync(full, r0);
+    const unsigned b1 = __ballot_sync(full, r1w);
+    // The open chunk ends in this block: lanes below tb lie in it.
+    const bool closes = chunk_end - first <= kRateWords;
+    const int tb = closes ? (chunk_end - first) / 2 : 32;
+    const unsigned open = tb >= 32 ? full : (1u << tb) - 1;
+    int before = 0, here = 0;
+    if (b0 | b1) {
+      if (nacc < 0) nacc = compact_queue(qrow, acc, cap, mm, t);
+      const int rank0 =
+          t < tb ? in_chunk + __popc(b0 & below) + __popc(b1 & below)
+                 : __popc(b0 & below & ~open) + __popc(b1 & below & ~open);
+      const int rank1 = rank0 + r0;
+      const bool k0 = r0 && rank0 < chunk_k, k1 = r1w && rank1 < chunk_k;
+      const unsigned kb0 = __ballot_sync(full, k0);
+      const unsigned kb1 = __ballot_sync(full, k1);
+      const int m0 = kept + __popc(kb0 & below) + __popc(kb1 & below);
+      const int m1 = m0 + k0;
+      if (k0 && m0 < cap) w0 = acc[m0];
+      if (k1 && m1 < cap) w1 = acc[m1];
+      kept += __popc(kb0) + __popc(kb1);
+      here = __popc(b0) + __popc(b1);
+      before = __popc(b0 & open) + __popc(b1 & open);
+      rejected += here;
+    }
+    if (closes) {
+      ok = ok && in_chunk + before <= chunk_k;
+      in_chunk = here - before;
+      chunk_end += chunk_n;
+    } else {
+      in_chunk += here;
+    }
+    if (valid) {
+      longlong2 v;
+      v.x = (long long)barrett32(w0, q, r1);
+      v.y = (long long)barrett32(w1, q, r1);
+      *reinterpret_cast<longlong2*>(o + i0) = v;
+    }
+  }
+
+  // consumed: the queue index of the rejected-th accepted draw, plus 1.
+  unsigned long long consumed = 0;
+  if (rejected > 0 && rejected <= nacc) {
+    for (int base = 0, run = 0;; base += 32) {
+      const int j = base + t;
+      const bool in = j < cap && (uint32_t)qrow[j] < mm;
+      const unsigned ba = __ballot_sync(full, in);
+      if (run + __popc(ba) >= rejected) {
+        const bool hit = in && run + __popc(ba & below) + 1 == rejected;
+        consumed = base + __ffs(__ballot_sync(full, hit));
+        break;
+      }
+      run += __popc(ba);
+    }
+  } else if (rejected > 0) {
+    ok = false;
+    consumed = (unsigned long long)cap + 1;
+  }
+  if (t == 0) {
+    const uint64_t next = c + 1 + consumed;
+    next_ctr[2 * g] = (long long)(uint32_t)next;
+    next_ctr[2 * g + 1] = (long long)(uint32_t)(next >> 32);
+    ok_out[g] = ok;
   }
 }
 
@@ -342,5 +527,29 @@ extern "C" int sek_keccak_cbd(const void* seeds, const void* ctrs, void* out,
   keccak_cbd_kernel<<<(unsigned)grid, kCbdBlock, 0, (cudaStream_t)stream>>>(
       (const long long*)seeds, (const long long*)ctrs, (long long*)out,
       nseeds, nfills);
+  return (int)cudaGetLastError();
+}
+
+// The uniform draw of one limb for S streams: seeds (S, 16), ctrs (S, 2)
+// and the queue (S, cap) int64 u32 values -> a (S, n) int64 in [0, q),
+// next_ctr (S, 2) int64 u32 pairs, ok (S,) bool.  The queue of each warp
+// lives in shared memory: 4 warps a block while 4 queues fit in 48 KiB,
+// fewer above (the wrapper takes cap <= 12288, one queue in 48 KiB).
+extern "C" int sek_keccak_uniform(const void* seeds, const void* ctrs,
+                                  const void* queue, void* a, void* next_ctr,
+                                  void* ok, long long nseeds, int n,
+                                  unsigned q, unsigned r1, unsigned mm,
+                                  int cap, int chunk_n, int chunk_k,
+                                  void* stream) {
+  if (nseeds <= 0) return (int)cudaSuccess;
+  int warps = 4;
+  while (warps > 1 && (size_t)warps * cap * 4 > 48 * 1024) warps /= 2;
+  const size_t smem = (size_t)warps * cap * 4;
+  const long long grid = (nseeds + warps - 1) / warps;
+  keccak_uniform_kernel<<<(unsigned)grid, 32 * warps, smem,
+                          (cudaStream_t)stream>>>(
+      (const long long*)seeds, (const long long*)ctrs,
+      (const long long*)queue, (long long*)a, (long long*)next_ctr,
+      (bool*)ok, nseeds, n, q, r1, mm, cap, chunk_n, chunk_k);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,7 @@ from . import calibrate, encode, keccak, ntt
 # name -> (wrapper module, attribute)
 COUNTERS = {"keccak": (keccak, "launches"),
             "keccak_cbd": (keccak, "cbd_launches"),
+            "keccak_uniform": (keccak, "uniform_launches"),
             "ntt": (ntt, "launches"), "ntt_pte": (ntt, "pte_launches"),
             "ntt_asym": (ntt, "asym_launches"),
             "encode": (encode, "launches"), "calib": (calibrate, "launches")}

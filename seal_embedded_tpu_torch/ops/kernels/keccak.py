@@ -1,5 +1,5 @@
-"""Wrapper of kernel KK (``csrc/keccak.cu``): batched SHAKE-256 squeezes
-and the CBD error values drawn from them.
+"""Wrapper of kernel KK (``csrc/keccak.cu``): batched SHAKE-256 squeezes,
+the CBD error values and the uniform draw of one limb.
 
 ``keccak_squeeze`` serves both TPU kernels it replaces: the multi-block
 squeeze (K1, ``nblocks > 1``) and the single-block streams that keep only
@@ -9,7 +9,11 @@ seeds and counters as they are.  ``cbd_values`` is KK's CBD role: the
 error values themselves, popcounts included.  Both read and write int64
 tensors as the callers hold them.  On CPU tensors each runs its plain
 version (``ops.keccak.shake256_words``, ``ops.keccak.cbd_values``); on
-CUDA tensors it launches KK or raises.
+CUDA tensors it launches KK or raises.  ``uniform_draw`` is KK's uniform
+role: the base squeeze, the rank-select against a queue drawn by
+``keccak_squeeze`` and ``barrett32`` in one launch; it takes CUDA tensors
+only, its plain version being ``ops.sampling.sample_uniform``'s torch
+path.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from . import build
 
 launches = 0
 cbd_launches = 0
+uniform_launches = 0
 
 
 def _check_streams(name, seeds, counters):
@@ -99,3 +104,61 @@ def cbd_values(seeds, counters, n: int):
                    n // 16, build.stream(out)), name)
     cbd_launches += 1
     return out
+
+
+# The uniform role keeps each stream's queue in shared memory, within the
+# 48 KiB a block may take without asking: up to 12288 u32 draws.
+UNIFORM_MAX_CAP = 12288
+
+
+def uniform_draw(seeds, counters, queue, n: int, q: int, r1: int,
+                 max_multiple: int, chunk_n: int, chunk_k: int):
+    """The uniform draw of one limb for S streams (sample.c:39-57): the n
+    words of SHAKE-256(seed || counter), every rejected one (>=
+    max_multiple) that the chunk rule keeps replaced by rank from the
+    queue, accepted draws first, then reduced mod q (barrett32, r1 the
+    high word of floor(2^64 / q)).  Chunk rule: per chunk_n words only the
+    first chunk_k rejections take queue values, a chunk with more clears
+    ok.
+
+    seeds: int64 (S, 16), counters: int64 (S, 2) u32 values; queue: int64
+    (S, cap) u32 words, draw j of stream s at counters[s] + 1 + j.
+    Returns (a int64 (S, n) in [0, q), next counters int64 (S, 2), ok bool
+    (S,)).  CUDA tensors only: the plain version is
+    ``ops.sampling.sample_uniform``'s torch path.
+    """
+    global uniform_launches
+    name = "uniform_draw"
+    _check_streams(name, seeds, counters)
+    S = seeds.shape[0]
+    build.require(queue.dtype == torch.int64 and queue.dim() == 2
+                  and queue.shape[0] == S,
+                  f"{name}: queue must be int64 (S, cap), got "
+                  f"{queue.dtype} {tuple(queue.shape)}")
+    cap = queue.shape[1]
+    build.require(1 <= cap <= UNIFORM_MAX_CAP,
+                  f"{name}: cap must be in [1, {UNIFORM_MAX_CAP}], got {cap}")
+    build.require(n >= 2 and n % 2 == 0, f"{name}: n must be even, got {n}")
+    build.require(chunk_n >= 2 and chunk_n % 2 == 0 and n % chunk_n == 0
+                  and chunk_k >= 1,
+                  f"{name}: chunk_n must be even and divide n, chunk_k >= 1")
+    build.require(2 <= q < 2 ** 31 and 0 <= r1 < 2 ** 32
+                  and 0 <= max_multiple < 2 ** 32,
+                  f"{name}: q must be below 2^31, r1 and max_multiple u32")
+    build.require(not build.on_cpu(name, seeds, counters, queue),
+                  f"{name}: CUDA tensors only; on the CPU "
+                  f"ops.sampling.sample_uniform runs the plain version")
+    dev = seeds.device
+    a = torch.empty((S, n), dtype=torch.int64, device=dev)
+    nxt = torch.empty((S, 2), dtype=torch.int64, device=dev)
+    ok = torch.empty((S,), dtype=torch.bool, device=dev)
+    fn = build.entry("sek_keccak_uniform",
+                     [ctypes.c_void_p] * 6
+                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
+                        ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    build.check(fn(*map(build.ptr, (seeds, counters, queue, a, nxt, ok)), S,
+                   n, q, r1, max_multiple, cap, chunk_n, chunk_k,
+                   build.stream(a)), name)
+    uniform_launches += 1
+    return a, nxt, ok

@@ -16,7 +16,11 @@ device/lib/sample.c), with the same PRNG byte-consumption pattern:
 * Counters are u64 values carried as int64 (..., 2) (lo, hi) u32 pairs,
   with the carry into hi on every offset path.
 
-The rank-select stays torch ops (topk, stable sort, scatter), as the JAX
+On CUDA tensors the uniform draw is one KK role a limb
+(``kernels.keccak.uniform_draw``: the base squeeze, the rank-select and
+``barrett32`` in one launch, after KK's queue launch); on CPU tensors it
+runs the torch path below, the role's plain version.  The ternary draw's
+rank-select stays torch ops (topk, stable sort, scatter), as the JAX
 package left it to XLA.  Every SHAKE squeeze goes through kernel KK's
 wrapper.  All u32 values are int64 tensors in [0, 2^32).
 """
@@ -26,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from .keccak import MASK32, align_seed, words_to_bytes
-from .kernels.keccak import cbd_values, keccak_squeeze
+from .kernels import build
+from .kernels.keccak import cbd_values, keccak_squeeze, uniform_draw
 from .modarith import _q, as_mod, barrett32
 
 # One-byte refills drawn per 96-byte ternary block (sample.c:228-233):
@@ -169,6 +174,18 @@ def _chunk_k(nch: int, cap: int) -> int:
     return min(cap, _CHUNK_N)
 
 
+def _chunk_rule(n: int, cap: int) -> tuple[int, int]:
+    """(chunk width, rejections kept a chunk) of the uniform draw at degree
+    n with queue bound cap, as _rejected_positions applies them: one
+    chunk of n with the first min(cap, n) kept up to _CHUNK_N (where the
+    per-chunk flag adds nothing: a row with more than cap rejections
+    fails through the queue), _CHUNK_N and _chunk_k above.  KK's uniform
+    role takes them as its chunk_n and chunk_k."""
+    if n <= _CHUNK_N:
+        return n, min(cap, n)
+    return _CHUNK_N, _chunk_k(n // _CHUNK_N, cap)
+
+
 def _rejected_positions(rejected, cap: int):
     """Positions of the first `cap` rejected entries of each row, in
     position order (n where the rank is invalid).  Returns (positions
@@ -234,25 +251,42 @@ def _rank_select(base_vals, rejected, queue_vals, queue_acc):
     return final, consumed, ok
 
 
+def uniform_plain(seeds, counters, queue, n: int, q):
+    """The plain version of KK's uniform role (kernels.keccak.uniform_draw)
+    in torch passes: the base squeeze, the rank-select against the queue
+    and barrett32.  seeds (S, 16), counters (S, 2), queue (S, cap) int64
+    u32 words (draw j at counters + 1 + j).  Returns (a int64 (S, n) in
+    [0, q), next counters (S, 2), ok (S,))."""
+    m = as_mod(q)
+    base = keccak_squeeze(seeds, counters, _blocks_for_bytes(4 * n))[:, :n]
+    final, consumed, ok = _rank_select(base, base >= m.max_multiple, queue,
+                                       queue < m.max_multiple)
+    return barrett32(final, m), _c_add(counters, 1 + consumed), ok
+
+
 def sample_uniform(seed_words, counter, n: int, q,
                    queue_cap: int | None = None):
     """sample_poly_uniform (sample.c:39-57), batched.
 
     seed_words: int64 (..., 16); counter: int64 (..., 2) u64 pair per
     stream; q: int modulus.  Returns (poly int64 (..., n) in [0, q),
-    next_counter, ok).
+    next_counter, ok).  KK's queue launch draws the one-block queue at
+    c+1 .. c+cap; then on CUDA tensors KK's uniform role
+    (kernels.keccak.uniform_draw), on CPU tensors its plain version.
     """
     m = as_mod(q)
-    base = _squeeze(seed_words, counter, _blocks_for_bytes(4 * n))[..., :n]
-    rejected = base >= m.max_multiple
-
     cap = queue_cap if queue_cap is not None else uniform_queue_cap(n)
-    qvals = _squeeze(seed_words, counter, 1, nwords=1, per_seed=cap,
-                     start=1)[..., 0]
-    qacc = qvals < m.max_multiple
-
-    final, consumed, ok = _rank_select(base, rejected, qvals, qacc)
-    return barrett32(final, m), _c_add(counter, 1 + consumed), ok
+    seeds, ctrs = _flat_streams(seed_words, counter)
+    queue = keccak_squeeze(seeds, ctrs, 1, 1, cap, 1).reshape(-1, cap)
+    if build.on_cpu("sample_uniform", seeds, ctrs):
+        poly, nxt, ok = uniform_plain(seeds, ctrs, queue, n, m)
+    else:
+        poly, nxt, ok = uniform_draw(seeds, ctrs, queue, n, int(m.q),
+                                     int(m.r1), int(m.max_multiple),
+                                     *_chunk_rule(n, cap))
+    batch = counter.shape[:-1]
+    return (poly.reshape(batch + (n,)), nxt.reshape(batch + (2,)),
+            ok.reshape(batch))
 
 
 def sample_uniform_limbs(seed_words, moduli, n: int,

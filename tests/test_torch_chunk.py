@@ -29,6 +29,7 @@ from seal_embedded_tpu_torch.convert import (asym_state_to_device,
                                              state_to_device)
 from seal_embedded_tpu_torch.io.serialize import pack_ternary
 from seal_embedded_tpu_torch.ops import sampling as tsp
+from uniform_walk import kernel_walk
 
 torch.set_num_threads(2)
 
@@ -44,7 +45,7 @@ def _u64(pair) -> int:
     return int(pair[0]) | (int(pair[1]) << 32)
 
 
-@pytest.mark.parametrize("n", [8192, 16384])
+@pytest.mark.parametrize("n", [4096, 8192, 16384])
 def test_sample_uniform_high_rejection_vs_c_loop(n):
     """Values, next counters and ok against the C loop from the same seed
     and counter (one counter about to carry across 2^32)."""
@@ -162,6 +163,69 @@ def test_rejected_positions_wide_cap(n):
         assert np.array_equal(pos[r].numpy(), want), r
         assert num[r] == m.sum()
     assert ok.tolist() == [True, True, False]
+
+
+@pytest.mark.parametrize("n,nprimes", [(8192, 6), (16384, 13)])
+def test_kernel_walk_default_chain_masks(n, nprimes):
+    """The uniform role's walk (tests/uniform_walk.py) on _masks' rows
+    (160 in a chunk, 161 in the last chunk, every chunk full, 161 at the
+    row's end) gives the rank-select's values, consumed counts and ok."""
+    cap = tsp.queue_cap_for(n, PRIMES_30BIT[:nprimes])
+    rng = np.random.default_rng(n + nprimes)
+    masks = _masks(n, rng)
+    base = rng.integers(0, 2 ** 32, masks.shape, dtype=np.int64)
+    qvals = rng.integers(0, 2 ** 32, (masks.shape[0], cap), dtype=np.int64)
+    qacc = rng.random(qvals.shape) < 0.98
+    want = tsp._rank_select(*map(torch.as_tensor,
+                                 (base, masks, qvals, qacc)))
+    got = kernel_walk(base, masks, qvals, qacc, *tsp._chunk_rule(n, cap))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+    assert got[2].tolist() == [True, True, True, False, False, False]
+
+
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_kernel_walk_wide_cap(n):
+    """The walk at chain C's caps, a chunk holding 1,000, cap - 50 and
+    cap + 30 rejections: the rank-select's values, consumed and ok."""
+    cap = tsp.queue_cap_for(n, (Q_HIGH,))
+    rng = np.random.default_rng(n + 2)
+    rows = []
+    for dense in (1000, cap - 50, cap + 30):
+        m = rng.random(n) < 0.01
+        m[4096 + rng.choice(4096, dense, replace=False)] = True
+        rows.append(m)
+    masks = np.stack(rows)
+    base = rng.integers(0, 2 ** 32, masks.shape, dtype=np.int64)
+    qvals = rng.integers(0, 2 ** 32, (3, cap), dtype=np.int64)
+    qacc = rng.random(qvals.shape) < 0.9
+    want = tsp._rank_select(*map(torch.as_tensor,
+                                 (base, masks, qvals, qacc)))
+    got = kernel_walk(base, masks, qvals, qacc, *tsp._chunk_rule(n, cap))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+
+
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_sample_uniform_chunk_overflow_vs_jax(n):
+    """On the high-rejection prime with the default chains' bound (cap
+    within the chunks' 160 each, where the JAX function runs), every
+    chunk rejects far more than 160 words: values, next counters and ok
+    (false) equal to the JAX sample_uniform's, counters at 2^32 - 1 and
+    2^64 - 1."""
+    cap = tsp.queue_cap_for(n, PRIMES_30BIT[:13])
+    assert cap <= (n // 4096) * 160
+    rng = np.random.default_rng(n + 7)
+    seeds = rng.integers(0, 2 ** 32, (3, 16), dtype=np.int64)
+    ctr = np.array([[2 ** 32 - 1, 0], [2 ** 32 - 1, 2 ** 32 - 1], [5, 9]])
+    j = [jnp.asarray(a.astype(np.uint32)) for a in (seeds, ctr)]
+    wpoly, wnext, wok = jsp.sample_uniform(*j, n, Q_HIGH, queue_cap=cap)
+    poly, nxt, ok = tsp.sample_uniform(torch.as_tensor(seeds),
+                                       torch.as_tensor(ctr), n, Q_HIGH,
+                                       queue_cap=cap)
+    assert np.array_equal(poly.numpy(), np.asarray(wpoly).astype(np.int64))
+    assert np.array_equal(nxt.numpy(), np.asarray(wnext).astype(np.int64))
+    assert ok.tolist() == np.asarray(wok).tolist() == [False] * 3
 
 
 N_SYM, B_SYM = 8192, 2

@@ -12,6 +12,7 @@ from seal_embedded_tpu.config import PRIMES_27BIT, PRIMES_30BIT
 from seal_embedded_tpu.ops import sampling as jsp
 from seal_embedded_tpu_torch.ops import keccak as tkc
 from seal_embedded_tpu_torch.ops import sampling as tsp
+from uniform_walk import kernel_walk
 
 torch.set_num_threads(2)
 
@@ -33,9 +34,11 @@ def _np(x):
 
 
 @pytest.mark.parametrize("n,q", [(1024, PRIMES_27BIT[0]),
-                                 (8192, PRIMES_30BIT[3])])
+                                 (4096, PRIMES_30BIT[0]),
+                                 (8192, PRIMES_30BIT[3]),
+                                 (16384, PRIMES_30BIT[12])])
 def test_sample_uniform_vs_jax(n, q):
-    """n = 8192 runs the chunked top-k of _rejected_positions."""
+    """n = 8192 and 16384 run the chunked top-k of _rejected_positions."""
     seeds, ctr = _seeds_counters(np.random.default_rng(n), 2)
     cap = jsp.queue_cap_for(n, (q,))
     wpoly, wnext, wok = jax.jit(
@@ -48,6 +51,81 @@ def test_sample_uniform_vs_jax(n, q):
     assert np.array_equal(nxt.numpy(), _np(wnext))
     assert np.array_equal(ok.numpy(), np.asarray(wok))
     assert ok.all()
+
+
+Q_HIGH = 536903681                     # rejects 12.5% of the words
+
+
+@pytest.mark.parametrize("n,q,cap,ok", [
+    (4096, PRIMES_30BIT[0], 160, [True] * 3),
+    (16384, PRIMES_30BIT[12], 456, [True] * 3),
+    (4096, PRIMES_30BIT[1], 8, [False] * 3),     # the queue falls short
+    (8192, Q_HIGH, 300, [False] * 3),            # > 160 in a chunk
+])
+def test_sample_uniform_edges_vs_jax(n, q, cap, ok):
+    """Counters at 2^32 - 1 and 2^64 - 1 (the next counter carries and
+    wraps), and rows whose ok is false: ranks past the accepted count take
+    the rejected queue values, consumed is cap + 1, and at n = 8192 on a
+    prime near 2^29 every chunk holds more than its 160 kept rejections."""
+    seeds, ctr = _seeds_counters(np.random.default_rng(n + cap), 3)
+    ctr[0] = [2 ** 32 - 1, 0]
+    wpoly, wnext, wok = jax.jit(
+        lambda s, c: jsp.sample_uniform(s, c, n, q, queue_cap=cap))(
+            _j(seeds), _j(ctr))
+    poly, nxt, got_ok = tsp.sample_uniform(torch.as_tensor(seeds),
+                                           torch.as_tensor(ctr), n, q,
+                                           queue_cap=cap)
+    assert np.array_equal(poly.numpy(), _np(wpoly))
+    assert np.array_equal(nxt.numpy(), _np(wnext))
+    assert np.array_equal(got_ok.numpy(), np.asarray(wok))
+    assert got_ok.tolist() == ok
+    assert nxt[0, 1] == 1 and nxt[-1, 1] == 0
+    if not ok[0]:      # consumed cap + 1: 2^32 - 1 and 2^64 - 1, + cap + 2
+        assert nxt[0].tolist() == [cap + 1, 1]
+        assert nxt[-1].tolist() == [cap + 1, 0]
+
+
+def _walk_case(n, p, cap, acc_p, seed):
+    """Synthetic base words, rejection masks (rate p) and a queue
+    (accepted at rate acc_p) of 4 rows: one with no rejection, one with
+    the first 200 words rejected, two at random."""
+    rng = np.random.default_rng(seed)
+    rejected = rng.random((4, n)) < p
+    rejected[0] = False
+    rejected[1, :200] = True
+    base = rng.integers(0, 2 ** 32, (4, n), dtype=np.int64)
+    qvals = rng.integers(0, 2 ** 32, (4, cap), dtype=np.int64)
+    qacc = rng.random((4, cap)) < acc_p
+    return base, rejected, qvals, qacc
+
+
+@pytest.mark.parametrize("n,p,cap,acc_p", [
+    (64, 0.2, 24, 0.9), (1024, 0.02, 40, 0.97), (4096, 0.03, 168, 0.97),
+    (4096, 0.05, 168, 0.5), (8192, 0.03, 168, 0.97), (8192, 0.05, 168, 0.97),
+    (8192, 0.02, 1472, 0.9), (16384, 0.02, 456, 0.97),
+    (16384, 0.13, 2768, 0.9)])
+def test_kernel_walk_vs_rank_select(n, p, cap, acc_p):
+    """The uniform role's walk (tests/uniform_walk.py) under the chunk
+    rule it is launched with (_chunk_rule) gives the rank-select's final
+    values, consumed counts and ok: chunks past 160 (p = 0.05 over 4096
+    words), queues that fall short (acc_p = 0.5), wide caps."""
+    base, rejected, qvals, qacc = _walk_case(n, p, cap, acc_p,
+                                             n + int(100 * p) + cap)
+    want = tsp._rank_select(*map(torch.as_tensor,
+                                 (base, rejected, qvals, qacc)))
+    got = kernel_walk(base, rejected, qvals, qacc, *tsp._chunk_rule(n, cap))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+
+
+@pytest.mark.parametrize("n,cap,rule", [
+    (1024, 40, (1024, 40)), (4096, 160, (4096, 160)), (64, 160, (64, 64)),
+    (8192, 320, (4096, 160)), (16384, 456, (4096, 160)),
+    (8192, 1472, (4096, 1472)), (16384, 2768, (4096, 2768)),
+    (16384, 5000, (4096, 4096))])
+def test_chunk_rule(n, cap, rule):
+    """The chunk width and kept rejections the role is launched with."""
+    assert tsp._chunk_rule(n, cap) == rule
 
 
 def test_sample_cbd_vs_jax():
