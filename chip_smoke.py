@@ -59,20 +59,19 @@ line each:
    event after each limb, one entry per signature) through
    ``sym_encrypt_stream`` forward and reverse and ``asym_encrypt_stream``:
    the first call's capture and the memory it leaves reserved, every limb
-   equal to the eager stream's and the batch's, launches per stream equal
-   to the eager stream's, a stream abandoned after its first limb and a
-   whole one after it, no capture after the first call, timed beside the
-   eager stream and the compiled batch plus its fetch (rotated rounds),
-   host waits per limb, the footprint (pool resident plus the peak above
-   the inputs; a sym stream's may not exceed the compiled batch's) and the
-   eager peaks (a sym stream's may not exceed its batch's); two asym
+   equal to the eager batch's, launches per stream those one call must
+   make (``stream_launches``), a stream abandoned after its first limb and
+   a whole one after it, no capture after the first call, timed beside the
+   compiled batch plus its fetch (rotated rounds), host waits per limb,
+   the footprint (pool resident plus the peak above the inputs; a sym
+   stream's may not exceed the compiled batch's); two asym
    streams of different B and keys, limb by limb in turn, each equal to its
    batch; ``se_encrypt_streaming`` sym and asym twice each, the second call
    replaying the context's cached stream, and ``se_cleanup`` zeroing the
    stream's copy of the key; the compiled sym stream at n = 16384, L = 13,
    B = 64 (13 limb graphs and events, KE's 2-CTA clusters in its
-   prologue), golden rows limb by limb, a second call that captures
-   nothing; the adapter's CRT verify of two of the card's
+   prologue), golden rows limb by limb, the launches one call must make, a
+   second call that captures nothing; the adapter's CRT verify of two of the card's
    ciphertexts, whole and with one coefficient of prime 2 flipped;
 6. the launch counters of each headline run, each 5b run, each phase 7
    and phase 8 run and of the calibration;
@@ -170,11 +169,11 @@ line each:
    signature's resident bytes and footprint, their sum, what the registry
    kept; (c) the compiled sym stream at 16384/13, B = 1024, and the asym
    one at B = 512, golden limb by limb at both ends and every limb equal
-   to the fused batch's and the eager stream's, the pool (at most
+   to the fused batch's, the launches one call must make, the pool (at most
    ``STREAM_POOL_MIB``, beside ``EVERY_LIMB_POOL_MIB``), the footprint
    and the streamed ms beside the batch + fetch, and the sym stream's
    pool at L = 3 on the same inputs within ``RING_GAP_MIB`` of its pool
-   at L = 13 (its limbs equal to the eager stream's); (d) phase 5's
+   at L = 13 (its limbs equal to SymEncryptor's); (d) phase 5's
    headline sym, every phase 8
    factory and every phase 9 batch again, captured again where evicted,
    golden or equal to their eager modules, and the whole call of a live
@@ -212,6 +211,8 @@ import time
 import numpy as np
 import torch
 
+from benchmark.peaks import (HBM_BYTES_PER_S, INSTR_PER_BUTTERFLY,
+                             INSTR_PER_PERMUTATION, int_rate)
 from perf_memory import (HOLD_B, HOLD_CALLS, HOLD_FIRST, SEQUENCE,
                          SEQUENCE_L, SEQUENCE_N, call_cost, run_held,
                          run_sequence, timed_call)
@@ -292,30 +293,24 @@ CALIB_LANE_ITERS_PER_SM = 2 * 1024 * 32768
 
 # Bounds.  Bytes: each input read once and each output written once, a
 # value at the width it needs (u32 words and values below q 4 bytes, pte
-# and KE's coefficients 8, CBD values in [-63, 63] 1), at the H100's
-# 3.35 TB/s.  Operations: the 32-bit integer-pipe instructions the work
-# needs at least, at 64 per clock per SM (the CUDA C++ Programming
-# Guide's throughput of 32-bit logic, shift, funnel-shift and add on
-# compute capability 9.0) on every SM at the card's maximum SM clock:
-# * a Keccak-f[1600] permutation on 32-bit halves, 24 rounds of: theta's
-#   column parities 20 LOP3, their rotation by 1 5 SHF (bit-interleaved
-#   halves), theta's XORs 50 LOP3, rho 47 SHF, chi 50 LOP3, iota 1 LOP3:
-#   173 a round, 4152 (the absorb not counted);
-# * a Harvey butterfly: the lazy correction and the two adds, 4 (its
-#   three products go to the FMA pipe);
-# * KC's mixes, per chain and iteration: keccak a rotation and 2 LOP3, 3;
-#   ntt a butterfly per pair of chains, 2.
+# and KE's coefficients 8, CBD values in [-63, 63] 1), at the HBM rate.
+# Operations: the 32-bit integer-pipe instructions the work needs at
+# least, at the SMs' integer rate.  Both rates, and the instructions of a
+# Keccak-f[1600] permutation and of a Harvey butterfly, are those of the
+# benchmark's table of peaks (benchmark/peaks.py).  KC's mixes, per chain
+# and iteration: keccak a rotation and 2 LOP3, 3; ntt a butterfly per
+# pair of chains, 2.
 #
-# f64: 64 add or multiply results per clock per SM (the same table, compute
-# capability 9.0); KE needs 10 a butterfly (2 adds, 2 subtractions and
-# 4 products for u + w and (u - w) * s, complex) and 2 a coefficient (the
-# scaling product and the rounding's add).
-HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_SM_CLOCK = 64
+# f64, which the benchmark's table does not hold: 64 add or multiply
+# results per clock per SM (the CUDA C++ Programming Guide's throughput
+# table, compute capability 9.0); KE needs 10 a butterfly (2 adds, 2
+# subtractions and 4 products for u + w and (u - w) * s, complex) and 2 a
+# coefficient (the scaling product and the rounding's add).
 F64_OPS_PER_SM_CLOCK = 64
 F64_OPS_PER_BUTTERFLY = 10
 F64_OPS_PER_COEFF = 2
-INT_OPS_PER_UNIT = {"keccak": 4152, "ntt": 4}
+INT_OPS_PER_UNIT = {"keccak": INSTR_PER_PERMUTATION,
+                    "ntt": INSTR_PER_BUTTERFLY}
 INT_OPS_PER_MIX_CHAIN = {"keccak": 3, "ntt": 2}
 
 # The kernels each path must launch (the names of ops/kernels/counters.py):
@@ -366,13 +361,12 @@ def phase_device():
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sm_hz = sms * mhz * 1e6
-    int_rate = INT_OPS_PER_SM_CLOCK * sm_hz
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     print(f"[1 device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} cuda {torch.version.cuda} | {nvcc[-1]} | "
           f"{sms} SMs, max SM clock {mhz:.0f} MHz: integer pipe "
-          f"{int_rate / 1e12:.3f} Tinstr/s")
+          f"{int_rate(sm_hz) / 1e12:.3f} Tinstr/s")
     print(smi)
     return smi, sm_hz
 
@@ -760,10 +754,10 @@ def bound_line(r, sm_hz) -> str:
     operations at their f64 rate (sm_hz: the card's SMs times their
     maximum clock), and its bound_by; raise if its time alone beats the
     bound.  Returns the text that states them."""
-    int_rate = INT_OPS_PER_SM_CLOCK * sm_hz
+    ints = int_rate(sm_hz)
     f64_rate = F64_OPS_PER_SM_CLOCK * sm_hz
     bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-    bound_ops = max(r["ops"] / int_rate, r["f64_ops"] / f64_rate) * 1e3
+    bound_ops = max(r["ops"] / ints, r["f64_ops"] / f64_rate) * 1e3
     r["bound_ms"] = max(bound_bytes, bound_ops)
     r["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
     roofline = r["bound_ms"] / r["kernel_ms"]
@@ -773,7 +767,7 @@ def bound_line(r, sm_hz) -> str:
     return (f"{r['name']} ({r['shape']}): bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']} ({r['bytes'] / 1e6:.1f} MB at 3.35 TB/s: "
             f"{bound_bytes:.4f} ms; {r['ops'] / 1e6:.1f} M integer "
-            f"instructions: {r['ops'] / int_rate * 1e3:.4f} ms; "
+            f"instructions: {r['ops'] / ints * 1e3:.4f} ms; "
             f"{r['f64_ops'] / 1e6:.1f} M f64 operations: "
             f"{r['f64_ops'] / f64_rate * 1e3:.4f} ms); roofline share "
             f"{roofline:.4f} alone, {r['bound_ms'] / r['ms']:.4f} through "
@@ -1169,6 +1163,30 @@ def check_limbs(limbs, c0, c1, walk, name):
                                      "the batch")
 
 
+def stream_launches(kind, parms) -> dict:
+    """The launches one call of a compiled stream of `kind` on `parms`
+    must make, by counter of ops/kernels/counters.py (every other one 0).
+    Sym: in the prologue KN's ntt(s), KE and KK's CBD role; a limb KK's
+    queue squeeze, its uniform role and KN from pte.  Asym: in the
+    prologue KE, two KK squeezes per 96-byte block of the ternary u (the
+    block and its refills) and two CBD draws; a limb KA."""
+    L = parms.nprimes
+    if kind == "sym":
+        want = {"keccak": L, "keccak_uniform": L, "keccak_cbd": 1,
+                "ntt": 1, "ntt_pte": L, "encode": 1}
+    else:
+        want = {"keccak": 2 * -(-parms.degree // 96), "keccak_cbd": 2,
+                "ntt_asym": L, "encode": 1}
+    return {k: want.get(k, 0) for k in counters.COUNTERS}
+
+
+def check_launches(counts, kind, parms, name):
+    want = stream_launches(kind, parms)
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, one call makes "
+                             f"{want}")
+
+
 def rotated_host_ms(fns, rounds=STREAM_ITERS):
     """Median host ms of each fn() (each ends with its results in host
     memory), started on an idle card, after one warm-up call each; round
@@ -1202,28 +1220,24 @@ def pool_resident(fn):
 
 def stream_cases(dev, parms, args, ainputs):
     """(tag, walk, compiled stream through its public entry point, the
-    cached Stream it runs, its inputs, eager stream, eager batch,
-    compiled batch) of each stream of phase 5b."""
+    cached Stream it runs, its inputs, eager batch, compiled batch) of
+    each stream of phase 5b."""
     fwd = SymEncryptor(parms, dev)
     rev = LimbscanEncryptor(parms, "reference", "reverse", dev)
     asym = AsymEncryptor(parms, *ainputs[1:3], dev)
     return (
         ("sym forward", [0, 1, 2],
          lambda *a: stream.sym_encrypt_stream(*a, parms, "f64", "forward"),
-         stream.sym_stream(parms, "forward", dev),
-         args, lambda: stream.sym_stream_with(fwd, *args),
+         stream.sym_stream(parms, "forward", dev), args,
          lambda: fwd(*args), make_fused_encryptor(parms, device=dev)),
         ("sym reverse", [2, 1, 0],
          lambda *a: stream.sym_encrypt_stream(*a, parms, "f64", "reverse"),
-         stream.sym_stream(parms, "reverse", dev),
-         args, lambda: stream.sym_stream_with(rev, *args, order="reverse"),
+         stream.sym_stream(parms, "reverse", dev), args,
          lambda: rev(*args),
          make_limbscan_encryptor(parms, "reference", "sf", "reverse", dev)),
         ("asym forward", [0, 1, 2],
          lambda *a: stream.asym_encrypt_stream(*a, parms, "f64", "forward"),
-         stream.asym_stream(parms, "forward", dev),
-         ainputs, lambda: stream.asym_stream_with(asym, ainputs[0],
-                                                  ainputs[3]),
+         stream.asym_stream(parms, "forward", dev), ainputs,
          lambda: asym(ainputs[0], ainputs[3]),
          make_asym_encryptor(parms, device=dev)))
 
@@ -1231,13 +1245,13 @@ def stream_cases(dev, parms, args, ainputs):
 def phase_streams(dev, smi, parms, args, ainputs):
     """Phase 5b's streams at the headline's shape: each compiled stream's
     first call (the capture) and its footprint, every limb against the
-    eager stream's and the batch's, launches per call against the eager
-    stream's, a stream abandoned after its first limb and a whole one
-    after it, times beside the eager stream and the compiled batch +
-    fetch, and the eager and compiled peaks against the batch's.
-    Returns the launch counts of one compiled stream of each."""
+    eager batch's, launches per call against those one call must make
+    (stream_launches), a stream abandoned after its first limb and a
+    whole one after it, times beside the compiled batch + fetch, and the
+    compiled footprint against the batch's.  Returns the launch counts
+    of one compiled stream of each."""
     runs = {}
-    for (tag, walk, compiled, cached, inputs, eager, batch,
+    for (tag, walk, compiled, cached, inputs, batch,
          cbatch) in stream_cases(dev, parms, args, ainputs):
         name = f"stream {tag}"
         torch.cuda.synchronize()
@@ -1256,16 +1270,9 @@ def phase_streams(dev, smi, parms, args, ainputs):
         want = [out[k].cpu() for k in ("c0", "c1")]
         del out
         check_limbs(limbs, *want, walk, f"compiled {name}")
-        limbs, eager_counts, eager_peak = peak_run(lambda: list(eager()))
-        check_limbs(limbs, *want, walk, f"eager {name}")
         limbs, runs[name], peak = peak_run(lambda: list(compiled(*inputs)))
         check_limbs(limbs, *want, walk, f"compiled {name} replay")
-        if runs[name] != eager_counts:
-            raise AssertionError(f"{name}: launches per replayed stream "
-                                 f"{runs[name]}, eager {eager_counts}")
-        if tag.startswith("sym") and eager_peak > batch_peak:
-            raise AssertionError(f"eager {name}: peak {eager_peak} B above "
-                                 f"the batch's {batch_peak} B")
+        check_launches(runs[name], tag.split()[0], parms, name)
         _, batch_resident = pool_resident(
             lambda: fetch_to_pinned(cbatch(*inputs)))
         _, _, cbatch_peak = peak_run(lambda: fetch_to_pinned(cbatch(*inputs)))
@@ -1284,8 +1291,8 @@ def phase_streams(dev, smi, parms, args, ainputs):
                     f"compiled {name} after an abandoned one")
         if list(cached.chain.entries.values()) != [entry]:
             raise AssertionError(f"{name}: a later call captured again")
-        (ms, eager_ms, batch_ms), (limbs, _, _) = rotated_host_ms(
-            [lambda: list(compiled(*inputs)), lambda: list(eager()),
+        (ms, batch_ms), (limbs, _) = rotated_host_ms(
+            [lambda: list(compiled(*inputs)),
              lambda: fetch_to_pinned(cbatch(*inputs))])
         waits = [l["wait_ms"] for l in limbs]
         del limbs, want
@@ -1294,12 +1301,12 @@ def phase_streams(dev, smi, parms, args, ainputs):
               f"the public entry point ({len(entry.graph.steps)} limb "
               f"graphs in one pool, {len(entry.outputs)} limb slots, one "
               f"entry) every "
-              f"limb equal to the eager stream's and the batch's, also "
+              f"limb equal to the batch's, also "
               f"after a stream abandoned after its first limb, no capture "
               f"after the first call; launches per stream "
-              f"{sum(runs[name].values())} "
-              f"= eager's; streamed {ms:.3f} ms compiled vs {eager_ms:.3f} "
-              f"eager vs compiled batch + fetch {batch_ms:.3f} ms (host "
+              f"{sum(runs[name].values())}, those one call makes; "
+              f"streamed {ms:.3f} ms compiled "
+              f"vs compiled batch + fetch {batch_ms:.3f} ms (host "
               f"clock to the last limb in host memory, medians of "
               f"{STREAM_ITERS} rotated rounds); host waits "
               f"{sum(waits):.3f} ms ({' / '.join(f'{w:.3f}' for w in waits)}"
@@ -1308,9 +1315,8 @@ def phase_streams(dev, smi, parms, args, ainputs):
               f"{footprint / mib:.1f} MiB ({resident / mib:.1f} resident + "
               f"{peak / mib:.1f} peak above the inputs) vs compiled batch "
               f"{batch_footprint / mib:.1f} ({batch_resident / mib:.1f} + "
-              f"{cbatch_peak / mib:.1f}); eager peaks above the inputs "
-              f"{eager_peak / mib:.1f} vs batch {batch_peak / mib:.1f} MiB; "
-              f"{smi}")
+              f"{cbatch_peak / mib:.1f}); the eager batch's peak above the "
+              f"inputs {batch_peak / mib:.1f} MiB; {smi}")
     return runs
 
 
@@ -1420,8 +1426,8 @@ def phase_api_stream(dev, smi):
     parsed = [serialize.seeded_ct_parse(blob) for blob in store]
     if [s for s, _ in parsed] != share_seeds[rows]:
         raise AssertionError("api seed-only: seeds differ")
-    c1, ok = expand_c1(api._seed_words_batch([s for s, _ in parsed], dev),
-                       parms)
+    words = graphs.to_device(kc.seed_words([s for s, _ in parsed]), dev)
+    c1, ok = expand_c1(words, parms)
     if not (torch.equal(c1, out["c1"]) and bool(ok.all())):
         raise AssertionError("api seed-only: expand_c1 differs from c1")
     c0 = torch.as_tensor(np.stack([c for _, c in parsed], axis=1)
@@ -1520,9 +1526,10 @@ def deep_inputs(gold, dev):
 def phase_deep_stream(dev, smi):
     """The compiled sym stream at n = 16384, L = 13, B = DEEP_B: one graph
     (KE as 2-CTA clusters in its prologue) of 13 limb events, one entry,
-    golden rows limb by limb, every limb equal to the eager stream's and
-    SymEncryptor's, and a second call that captures nothing.  Returns the
-    launch counts of one compiled stream."""
+    golden rows limb by limb, every limb equal to SymEncryptor's, the
+    launches one call must make (stream_launches), and a second call that
+    captures nothing.  Returns the launch counts of one compiled
+    stream."""
     parms = default_parms(DEEP_N, DEEP_L)
     gold = load_golden("sym", DEEP_N, DEEP_L)
     G = gold["v"].shape[0]
@@ -1542,30 +1549,20 @@ def phase_deep_stream(dev, smi):
     del out
     walk = list(range(DEEP_L))
     check_limbs(limbs, *want, walk, "compiled deep stream")
-    limbs, eager_counts, _ = counted_run(
-        lambda: list(stream.sym_stream_with(enc, *args)))
-    check_limbs(limbs, *want, walk, "eager deep stream")
     limbs, counts, _ = counted_run(lambda: list(compiled(*args)))
     check_limbs(limbs, *want, walk, "compiled deep stream, second call")
     if list(compiled.chain.entries.values()) != [entry] or len(
             entry.graph.steps) != DEEP_L:
         raise AssertionError("deep stream: the second call captured again")
-    if counts != eager_counts:
-        raise AssertionError(f"deep stream: launches {counts}, eager "
-                             f"{eager_counts}")
-    (ms, eager_ms), _ = rotated_host_ms(
-        [lambda: list(compiled(*args)),
-         lambda: list(stream.sym_stream_with(enc, *args))], DEEP_ROUNDS)
+    check_launches(counts, "sym", parms, "deep stream")
     del limbs, want
     print(f"[5b deep] compiled sym stream n={DEEP_N} L={DEEP_L} B={DEEP_B}:"
           f" {len(entry.graph.steps)} limb graphs and "
           f"{len(entry.outputs)} limb slots, one entry, "
           f"golden_sym_{DEEP_N}_{DEEP_L}.npz rows 0..{G - 1} bit-exact limb "
-          f"by limb, every limb equal to the eager stream's and "
-          f"SymEncryptor's, the second call captured nothing; launches "
-          f"{sum(counts.values())} = eager's; {ms:.3f} ms compiled vs "
-          f"{eager_ms:.3f} eager (host clock, medians of {DEEP_ROUNDS} "
-          f"rotated rounds); {smi}")
+          f"by limb, every limb equal to SymEncryptor's, the second call "
+          f"captured nothing; launches {sum(counts.values())}, those one "
+          f"call makes; {smi}")
     return counts
 
 COEFF_ROWS = 64
@@ -3175,34 +3172,24 @@ def memory_signatures(dev, smi, reg, card):
     return top
 
 
-def check_same_limbs(got, want, name):
-    """Two streams' limb dicts: the same primes in the same order, c0
-    and c1 bit-equal."""
-    if [l["prime_idx"] for l in got] != [l["prime_idx"] for l in want]:
-        raise AssertionError(f"{name}: limbs in another order")
-    for g, w in zip(got, want):
-        for key in ("c0", "c1"):
-            if not np.array_equal(g[key], w[key]):
-                raise AssertionError(f"{name}: prime {g['prime_idx']} {key} "
-                                     "differs from the eager stream")
-
-
 def memory_ring_gap(dev, smi, args, pool):
     """(c): the compiled sym stream at MEMORY_N, L = RING_L on the inputs
     of the L = MEMORY_L one, whose pool holds `pool` bytes: every limb
-    equal to the eager stream's, and its pool within RING_GAP_MIB of
+    equal to SymEncryptor's batch, and its pool within RING_GAP_MIB of
     `pool` (the ring does not grow with the chain)."""
     parms = default_parms(MEMORY_N, RING_L)
     cached = stream.sym_stream(parms, "forward", dev)
     cached.chain.clear()
     limbs = list(stream.sym_encrypt_stream(*args, parms))
     entry, = cached.chain.entries.values()
-    check_same_limbs(limbs, list(stream.sym_stream_with(
-        SymEncryptor(parms, dev), *args)), f"memory (c) sym L={RING_L}")
+    out = SymEncryptor(parms, dev)(*args)
+    check_limbs(limbs, *(out[k].cpu() for k in ("c0", "c1")),
+                list(range(RING_L)), f"memory (c) sym L={RING_L}")
+    del out, limbs
     gap = pool - entry.resident
     print(f"[12 memory] (c) compiled sym stream n={MEMORY_N} L={RING_L} "
-          f"B={args[0].shape[0]} on the same inputs: every limb equal to the"
-          f" eager stream's; pool resident {entry.resident / MIB:.1f} MiB "
+          f"B={args[0].shape[0]} on the same inputs: every limb equal to "
+          f"SymEncryptor's; pool resident {entry.resident / MIB:.1f} MiB "
           f"against {pool / MIB:.1f} at L={MEMORY_L}, {gap / MIB:.1f} MiB "
           f"apart (at most {RING_GAP_MIB}); {smi}")
     if abs(gap) > RING_GAP_MIB * MIB:
@@ -3215,8 +3202,9 @@ def memory_streams(dev, smi):
     """(c): the compiled sym stream at 16384/13, B=1024, and the asym one
     at B=512 (pk from gen_pk_batch), through their public entry points:
     the golden rows at both ends limb by limb, every limb against the
-    compiled fused factory's batch (golden at both ends) and the eager
-    stream's, a replay equal; the pool's resident bytes (the registry's;
+    compiled fused factory's batch (golden at both ends), a replay equal
+    and making the launches one call must make (stream_launches); the
+    pool's resident bytes (the registry's;
     at most STREAM_POOL_MIB), the footprint, the streamed ms beside the
     compiled batch + fetch; then the sym pool against the L = RING_L
     one's (memory_ring_gap).  Returns the launch counts of one replayed
@@ -3236,10 +3224,6 @@ def memory_streams(dev, smi):
 
             def streamed():
                 return list(stream.sym_encrypt_stream(*args, parms))
-
-            def eager():
-                return list(stream.sym_stream_with(SymEncryptor(parms, dev),
-                                                   *args))
         else:
             pk = golden_pk(gold, parms, dev)
             check_pk(pk, gold, name)
@@ -3250,10 +3234,6 @@ def memory_streams(dev, smi):
 
             def streamed():
                 return list(stream.asym_encrypt_stream(v, *pk, s, parms))
-
-            def eager():
-                return list(stream.asym_stream_with(
-                    AsymEncryptor(parms, *pk, dev), v, s))
         cached.chain.clear()
         limbs, first_ms, _ = timed_call(streamed, ())
         entry, = cached.chain.entries.values()
@@ -3271,7 +3251,7 @@ def memory_streams(dev, smi):
         limbs, counts, peak = peak_run(streamed)
         runs[name] = (counts, SYM_PATH if kind == "sym" else ASYM_PATH)
         check_limbs(limbs, *want, walk, f"{name}, replayed")
-        check_same_limbs(limbs, eager(), name)
+        check_launches(counts, kind, parms, name)
         del limbs, want
         if len(entry.outputs) != graphs.RING_SLOTS:
             raise AssertionError(f"{name}: {len(entry.outputs)} limb slots")
@@ -3288,8 +3268,8 @@ def memory_streams(dev, smi):
               f"at both ends), a replay equal; first call {first_ms:.1f} ms;"
               f" pool resident {entry.resident / MIB:.1f} MiB (at most "
               f"{STREAM_POOL_MIB[kind]}; {EVERY_LIMB_POOL_MIB[kind]} when it "
-              f"held every limb), {len(entry.outputs)} limb slots; every "
-              f"limb equal to the eager stream's; footprint "
+              f"held every limb), {len(entry.outputs)} limb slots; "
+              f"footprint "
               f"{(entry.resident + peak) / MIB:.1f} MiB (+ {peak / MIB:.1f}"
               f" peak above the inputs) vs compiled batch + fetch "
               f"{(batch_resident + batch_peak) / MIB:.1f} "
@@ -3297,7 +3277,7 @@ def memory_streams(dev, smi):
               f"streamed {ms:.3f} ms vs compiled batch + fetch "
               f"{batch_ms:.3f} ms (host clock to the last limb in host "
               f"memory, medians of {DEEP_ROUNDS} rotated rounds); launches "
-              f"{sum(counts.values())}; {smi}")
+              f"{sum(counts.values())}, those one call makes; {smi}")
         if entry.resident > STREAM_POOL_MIB[kind] * MIB:
             raise AssertionError(f"{name}: pool {entry.resident} B, above "
                                  f"{STREAM_POOL_MIB[kind]} MiB")

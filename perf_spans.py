@@ -32,9 +32,9 @@ device ms, and the card's idle time before each step (``step_gap_ms``:
 the ring's wait and the host's launch); where ``api.call``'s self time
 lies, between which of its children (``call_self_by_place``); from
 set-up, ``capture_s`` (``registry.capture`` less the ``kernels.load``
-inside it).  Beside them, ``input_paths``: how many seed batches and
-uploads of those windows took each path of ``api.input_paths`` (seeds
-joined or seed by seed, uploads pinned or direct).  The window calls'
+inside it).  Beside them, ``input_paths``: how many seed batches of
+those windows took each path of ``keccak.input_paths`` (seeds joined or
+seed by seed).  The window calls'
 host-clock median and mean with the recorder on and off, the card's name
 and power limit.
 The last line of its output is one JSON object; --out writes it too.
@@ -65,7 +65,7 @@ from benchmark import harness, stats  # noqa: E402
 from benchmark import trace as tr  # noqa: E402
 from benchmark.catalog import Catalog  # noqa: E402
 from benchmark.traffic import Sample  # noqa: E402
-from seal_embedded_tpu_torch import api  # noqa: E402
+from seal_embedded_tpu_torch.ops import keccak as kc  # noqa: E402
 from seal_embedded_tpu_torch.utils import timing  # noqa: E402
 
 SPAN_METRICS = {            # metric: the span names it sums over a call
@@ -174,14 +174,14 @@ def capture_s(spans) -> dict:
 
 def window(cell, seconds, sample, on: bool):
     """One window of the cell with the recorder on or off: its calls, on
-    its spans, and the API's input paths it took (api.input_paths)."""
+    its spans, and the seed packing paths it took (keccak.input_paths)."""
     timing.take_spans()
-    paths = api.input_paths.copy()
+    paths = kc.input_paths.copy()
     timing.record_spans(on)
     win = cell.window(seconds, sample)
     timing.record_spans(False)
     spans = timing.take_spans()
-    paths = api.input_paths - paths
+    paths = kc.input_paths - paths
     if win.errors or win.walk_errors or win.failed:
         raise RuntimeError(f"a window call failed: {win.errors[:1]}")
     return win.calls, spans, paths

@@ -50,6 +50,8 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from benchmark.trace import union_us
+
 HERE = pathlib.Path(__file__).resolve().parent
 N, L, B = 4096, 3, 1024
 ITERS = 10
@@ -179,18 +181,6 @@ def kernel_alone_ms(fns, iters=ITERS, kinds=PORT_KERNELS):
     kinds None, in every kernel the fn runs: port_kernels)."""
     return [sum(end - start for start, end, _ in group) / iters / 1e3
             for group in port_kernels(fns, iters, kinds)]
-
-
-def union_us(intervals):
-    total, reach = 0.0, None
-    for start, end in sorted(intervals):
-        if reach is None or start > reach:
-            total += end - start
-            reach = end
-        elif end > reach:
-            total += end - reach
-            reach = end
-    return total
 
 
 def timeline(fn, labels=()):

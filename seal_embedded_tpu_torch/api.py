@@ -27,31 +27,24 @@ Where the JAX package's API differs, on purpose:
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import hashlib
 import os
-import threading
-from functools import lru_cache, partial
+from functools import lru_cache
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from .ckks.asym import (gen_pk_batch, make_fused_asym_encryptor,
+from .ckks.asym import (gen_pk_batch, key_tensor, make_fused_asym_encryptor,
                         redo_overflowed)
 from .ckks.fast import make_fused_encryptor
 from .ckks.sym import make_decryptor
-from .config import Parms, default_parms
-from .convert import CUDA, pk_to_device, unpack_ternary
+from .config import ASYM, CUDA, SYM, Parms, default_parms
 from .graphs import allocate, graphed, to_device
 from .io import serialize
 from .ops import keccak as kc
 from .ops.encode import check_encode_mode, make_decoder
-from .utils import timing
-
-SYM = "sym"
-ASYM = "asym"
 
 
 @dataclasses.dataclass
@@ -87,64 +80,6 @@ class SEContext:
             return "f64"
         check_encode_mode(self.encode_mode)
         return self.encode_mode
-
-
-# How many of the API's seed batches and uploads took each path:
-# "seeds.joined" (every seed 64 bytes: one view of their join) or
-# "seeds.per_seed" (seed_to_words a seed); "upload.pinned" (staged in
-# pinned host memory, on a card) or "upload.direct" (graphs.to_device).
-# perf_spans.py reports it beside the spans of the same work.
-input_paths = collections.Counter()
-_input_paths_lock = threading.Lock()
-
-
-def _took(path: str) -> None:
-    with _input_paths_lock:     # callers on several threads count each
-        input_paths[path] += 1
-
-
-def _seed_words(seeds: list[bytes]) -> np.ndarray:
-    """Seeds -> int64 (B, 16) u32 words, as np.stack of seed_to_words:
-    one frombuffer of their join where every seed is 64 bytes, else seed
-    by seed (a short seed zero-padded, what seed_to_words does)."""
-    if set(map(len, seeds)) == {64}:
-        _took("seeds.joined")
-        return np.frombuffer(b"".join(seeds), dtype="<u4").reshape(
-            -1, 16).astype(np.int64)
-    _took("seeds.per_seed")
-    return np.stack([kc.seed_to_words(s) for s in seeds]).astype(np.int64)
-
-
-def _pinned(device: torch.device) -> bool:
-    """Whether _upload stages through pinned host memory on `device`."""
-    return device.type == "cuda"
-
-
-def _upload(array: np.ndarray, device) -> torch.Tensor:
-    """One of a call's inputs on `device` (an ``api.upload`` span).  On a
-    card the array is copied once into pinned host memory (torch's
-    caching host allocator, which keeps the block until the copy has
-    read it) and from there, without the host waiting, on the current
-    stream, into a tensor allocated as an eager allocation
-    (graphs.allocate); elsewhere (None: the CPU) graphs.to_device."""
-    device = torch.device(device or "cpu")
-    with timing.span("api.upload"):
-        if not _pinned(device):
-            _took("upload.direct")
-            return to_device(array, device)
-        _took("upload.pinned")
-        host = torch.from_numpy(array).pin_memory()
-        out = allocate(partial(torch.empty_like, host, device=device),
-                       device, host.nbytes)
-        return out.copy_(host, non_blocking=True)
-
-
-def _seed_words_batch(seeds: list[bytes], device=None) -> torch.Tensor:
-    """64-byte seeds -> int64 (B, 16) u32 words on `device`: their
-    packing (``api.seed_pack``), then their upload (_upload)."""
-    with timing.span("api.seed_pack"):
-        words = _seed_words(seeds)
-    return _upload(words, device)
 
 
 def _to_host_u32(t: torch.Tensor) -> np.ndarray:
@@ -184,7 +119,7 @@ def _make_context(parms: Parms, encrypt_type: str, device,
             raise ValueError("an asymmetric context needs pk0 and pk1")
         ctx.pk0 = np.array(pk0, dtype=np.uint32)
         ctx.pk1 = np.array(pk1, dtype=np.uint32)
-        ctx._pk = pk_to_device(ctx.pk0, ctx.pk1, device)
+        ctx._pk = (key_tensor(ctx.pk0, device), key_tensor(ctx.pk1, device))
         ctx._asym_fn = make_fused_asym_encryptor(
             parms, ctx.resolved_encode_mode(), device)
     else:
@@ -217,7 +152,8 @@ def se_setup_custom(degree: int, nprimes: int, scale: float,
     elif sk_seed is not None:
         sk_signed = sample_sk_from_seed(parms, sk_seed)
     elif sk_path is not None:
-        sk_signed = unpack_ternary(serialize.read_sk(sk_path, n), n)
+        sk_signed = serialize.unpack_ternary_signed(
+            serialize.read_sk(sk_path, n), n)
 
     pk0 = pk1 = None
     if encrypt_type == ASYM:
@@ -286,17 +222,18 @@ def se_encrypt_seeded(ctx: SEContext, values: np.ndarray,
 
     dev = ctx.device
     seeds = seeds or [os.urandom(64) for _ in range(B)]
-    v = _upload(values, dev)
+    v = to_device(values, dev)
     if ctx.encrypt_type == SYM:
         if ctx._sk is None:
             raise ValueError("symmetric encryption needs the secret key")
         share_seeds = share_seeds or [os.urandom(64) for _ in range(B)]
-        out = ctx._sym_fn(v, ctx._sk, _seed_words_batch(share_seeds, dev),
-                          _seed_words_batch(seeds, dev))
+        out = ctx._sym_fn(v, ctx._sk,
+                          to_device(kc.seed_words(share_seeds), dev),
+                          to_device(kc.seed_words(seeds), dev))
     else:
         if ctx._asym_fn is None:
             raise ValueError("asymmetric encryption needs the public key")
-        words = _seed_words_batch(seeds, dev)
+        words = to_device(kc.seed_words(seeds), dev)
         out = ctx._asym_fn(v, *ctx._pk, words)
         _write_exact_rows(ctx, out, v, words)
 

@@ -31,8 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..config import Parms
-from ..convert import CUDA
+from ..config import CUDA, Parms
 from ..graphs import allocate, graphed, to_device
 from ..ops import modarith as ma
 from ..ops import sampling as sp

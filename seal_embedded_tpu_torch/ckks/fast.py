@@ -23,8 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import Parms
-from ..convert import CUDA
+from ..config import CUDA, Parms
 from ..graphs import graphed
 from ..ops import modarith as ma
 from ..ops import sampling as sp

@@ -23,8 +23,7 @@ from functools import lru_cache, partial
 
 import torch
 
-from ..config import Parms
-from ..convert import CUDA
+from ..config import CUDA, Parms
 from ..graphs import graphed
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode

@@ -28,19 +28,16 @@ replays them, the counterpart of the JAX package's jitted per-limb
 step.  The compiled streams are cached per (parms, order, device)
 (``sym_stream``, ``asym_stream``), the counterpart of its
 ``lru_cache(maxsize=16)`` on ``_limb_step`` and ``_asym_init``.
-``sym_stream_with`` and ``asym_stream_with`` run the same steps eagerly
-on a prebuilt encryptor.
 
 The host fetches limb i while the device computes limb i+1.  JAX got
 that overlap from asynchronous dispatch, and bounded the device's share
 by keeping two limbs in flight; here limb i's copies to pinned host
 memory run on a side stream after the event limb i recorded on the
-compute stream.  A compiled stream queues every limb's copies at its
-first next(), each right after its limb's graph, and the card waits for
-limb i's copies before limb i+2 writes the same slot (never the host):
-the card holds two limbs whatever the chain's length.  An eager one
-queues limb i's copies once limb i+1 is queued.  The host waits on that
-limb's copy event only, never on the compute stream.  c0 and c1 travel
+compute stream.  A stream queues every limb's copies at its first
+next(), each right after its limb's graph, and the card waits for limb
+i's copies before limb i+2 writes the same slot (never the host): the
+card holds two limbs whatever the chain's length.  The host waits on
+that limb's copy event only, never on the compute stream.  c0 and c1 travel
 as int32 (every prime is below 2^31), with the ok flags in the same
 copy, and are viewed as uint32 on the host.  Each limb lands in pinned
 buffers of its own, so a yielded array is never overwritten by a later
@@ -58,14 +55,14 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from ..config import Parms
-from ..convert import CUDA
-from ..graphs import Chain, eager_chain, to_device
+from ..config import ASYM, CUDA, Parms
+from ..graphs import Chain, to_device
+from ..io import serialize
+from ..ops import keccak as kc
 from ..ops import sampling as sp
 from ..ops.encode import check_encode_mode
 from ..utils import timing
 from .asym import AsymEncryptor, key_tensor, redo_overflowed
-from .fast import SymEncryptor
 from .limbwise import ORDERS, LimbscanEncryptor
 
 
@@ -83,28 +80,19 @@ class _HostFetch:
     limb's event; on the CPU nothing is copied."""
 
     def __init__(self, device: torch.device):
-        self.device = device
         self.copy_stream = (torch.cuda.Stream(device=device)
                             if device.type == "cuda" else None)
 
-    def start(self, prime_idx, q, parts, ready=None):
+    def start(self, prime_idx, q, parts, ready):
         """Queue one limb's copy (a ``fetch.queue`` span); returns the
         pending item, its copy event last.  parts: c0, c1 int32 (B, n) and
-        ok (B,) bool; ready: the event that ends them in a compiled
-        stream's ring slot, None for tensors just made on the compute
-        stream.  Under the run's card clock the copy is marked
-        (``dev.copy``) from the end of its wait for `ready` to its end."""
+        ok (B,) bool, a stream's ring slot; ready: the event that ends
+        them there (on a card).  Under the run's card clock the copy is
+        marked (``dev.copy``) from the end of its wait for `ready` to its
+        end."""
         with timing.span("fetch.queue"):
             if self.copy_stream is None:
                 return prime_idx, q, parts, None
-            if ready is None:
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(self.device))
-                for t in parts:
-                    # Made on the compute stream, read on the side stream:
-                    # the allocator must not hand the memory out again
-                    # before the copy ends.
-                    t.record_stream(self.copy_stream)
             host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                          for t in parts)
             clock = timing.current_clock()
@@ -149,22 +137,6 @@ def _fetch(item, fix=None) -> dict:
                 "wait_ms": 0.0 if done is None else wait.ms}
 
 
-def _pipeline(outs, walk, device: torch.device, fix=None) -> Iterator[dict]:
-    """Drive an iterator of per-limb (c0, c1, ok) device results, the
-    limbs of `walk` ((prime_idx, q) each) in turn, keeping one limb in
-    flight: limb i is fetched only after limb i+1 has been queued (the
-    eager stream); fix as _fetch takes it."""
-    fetch = _HostFetch(device)
-    pending = []
-    for (prime_idx, q), parts in zip(walk, outs):
-        pending.append(fetch.start(prime_idx, q, parts))
-        del parts   # the limb's device copy is freed once fetched
-        if len(pending) > 1:
-            yield _fetch(pending.pop(0), fix)
-    while pending:
-        yield _fetch(pending.pop(0), fix)
-
-
 def _host_form(c0, c1, ok, out=None):
     """A limb's outputs as the fetch carries them: c0, c1 (B, n) u32
     values as int32, ok (B,) bool; written into `out` (a compiled
@@ -178,9 +150,10 @@ def _host_form(c0, c1, ok, out=None):
 
 class _SymSteps:
     """The sym stream's prologue and per-limb step (graphs.eager_chain's
-    form) on a SymEncryptor whose per-limb buffers are in walk order."""
+    form) on a LimbscanEncryptor whose per-limb buffers are in walk
+    order."""
 
-    def __init__(self, enc: SymEncryptor):
+    def __init__(self, enc: LimbscanEncryptor):
         self.enc = enc
         self.nsteps = len(enc.moduli)
 
@@ -344,34 +317,6 @@ def _device(values, device) -> torch.device:
     return values.device if device is None else torch.device(device)
 
 
-def sym_stream_with(enc: SymEncryptor, values, sk_signed, share_words,
-                    err_words, order: str = "forward") -> Iterator[dict]:
-    """sym_encrypt_stream run eagerly on a prebuilt encryptor whose
-    per-limb buffers are in the walk order of `order` (a SymEncryptor for
-    "forward", a reverse LimbscanEncryptor for "reverse"); inputs on its
-    device."""
-    idxs = _walk(enc.parms.nprimes, order)
-    if enc.moduli != tuple(int(enc.parms.moduli[i]) for i in idxs):
-        raise ValueError(f"the encryptor's limbs are not in {order} order")
-    steps = _SymSteps(enc)
-    return _pipeline(eager_chain(steps.prologue, steps.step, steps.nsteps,
-                                 (values, sk_signed, share_words, err_words)),
-                     _limbs(enc.parms, idxs), values.device)
-
-
-def asym_stream_with(enc: AsymEncryptor, values, seed_words,
-                     order: str = "forward") -> Iterator[dict]:
-    """asym_encrypt_stream run eagerly on a prebuilt encryptor (its pk
-    included)."""
-    idxs = _walk(enc.parms.nprimes, order)
-    steps = _AsymSteps(enc, idxs)
-    args = (values, enc.pk0, enc.pk1, seed_words)
-    return _pipeline(eager_chain(steps.prologue, steps.step, steps.nsteps,
-                                 args),
-                     _limbs(enc.parms, idxs), values.device,
-                     steps.exact_rows(args))
-
-
 def sym_encrypt_stream(values, sk_signed, share_words, err_words,
                        parms: Parms, encode_mode: str = "f64",
                        order: str = "forward",
@@ -434,15 +379,12 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
     keys.  The seeds are required: a missing list raises ValueError (the
     JAX function dies with a TypeError in its seed conversion).  The
     values and seed words reach the card through pinned host memory
-    without the host waiting for the copies (api._upload).  Returns the
+    without the host waiting for the copies (graphs.to_device).  Returns the
     list of limb dicts.  The call is an ``api.call`` span, with the
     seeds' packing (``api.seed_pack``), each upload (``api.upload``), the
     chain's run (``chain.run``), each limb's fetch (``fetch.wait``,
     ``fetch.view``) and its sends (``api.send``) under it.
     """
-    from ..api import ASYM, _seed_words_batch, _upload
-    from ..io import serialize
-
     if err_seeds is None:
         raise ValueError("se_encrypt_streaming needs err_seeds, one 64-byte "
                          "private seed per message")
@@ -452,9 +394,9 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
     with timing.span("api.call", root=True):
         ctx.resolved_encode_mode()
         dev = ctx.device
-        values = np.atleast_2d(np.asarray(values, dtype=np.float32))
-        vals = _upload(values, dev)
-        err_w = _seed_words_batch(err_seeds, dev)
+        vals = to_device(
+            np.atleast_2d(np.asarray(values, dtype=np.float32)), dev)
+        err_w = to_device(kc.seed_words(err_seeds), dev)
         if ctx.encrypt_type == ASYM:
             if ctx._pk is None:
                 raise ValueError("asym streaming needs a loaded pk")
@@ -464,8 +406,8 @@ def se_encrypt_streaming(ctx, values, share_seeds=None, err_seeds=None,
             if ctx._sk is None:
                 raise ValueError("sym streaming needs the secret key")
             stream = sym_stream(ctx.parms, order, dev)
-            gen = stream(vals, ctx._sk, _seed_words_batch(share_seeds, dev),
-                         err_w)
+            gen = stream(vals, ctx._sk,
+                         to_device(kc.seed_words(share_seeds), dev), err_w)
         ctx._streams.add(stream)
         out = []
         for limb in gen:

@@ -23,8 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import Parms
-from ..convert import CUDA
+from ..config import CUDA, Parms
 from ..graphs import graphed
 from ..io.serialize import intt_fast_root_table
 from ..ops import modarith as ma

@@ -3,7 +3,9 @@
 A copy of ``seal_embedded_tpu/config.py``: that module is pure Python, but
 importing it runs ``seal_embedded_tpu/__init__.py``, which imports jax, so
 the port carries its own copy (tests/test_torch_fast.py holds the two
-equal).
+equal).  It adds the port's default device (``CUDA``) and a context's
+encrypt types (``SYM``, ``ASYM``): every layer of the port imports this
+module, so nothing below the API reaches up for them.
 
 Mirrors the capability surface of the reference's parameter layer
 (reference: device/lib/parameters.{h,c}, device/lib/modulus.{h,c}) but as a
@@ -21,6 +23,8 @@ import dataclasses
 import math
 from functools import lru_cache
 from typing import Sequence
+
+import torch
 
 # 27-bit primes, q = 1 mod 8192 (parameters.c:129-142)
 PRIMES_27BIT = (134012929, 134111233, 134176769)
@@ -76,6 +80,13 @@ NTT_ROOTS: dict[tuple[int, int], int] = {
 }
 
 SEED_BYTE_COUNT = 64  # SE_PRNG seed size (defines.h:67); matches SEAL
+
+# The port's own: where its constructors and factories put their tensors
+# unless told otherwise (the card; tests on the CPU pass device="cpu"),
+# and a context's encrypt types.
+CUDA = torch.device("cuda")
+SYM = "sym"
+ASYM = "asym"
 
 
 @lru_cache(maxsize=None)

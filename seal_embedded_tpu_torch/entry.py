@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from .ckks.sym import sym_encrypt_batch
-from .config import default_parms
-from .convert import CUDA, state_to_device
+from .config import CUDA, default_parms
+from .convert import state_to_device
 from .graphs import graphed
 
 ENTRY_BATCH = 4

@@ -465,12 +465,32 @@ def allocate(fn, device, need: int):
     return registry_for(device).allocate(fn, need)
 
 
+def _pinned(device: torch.device) -> bool:
+    """Whether to_device stages host data through pinned host memory on
+    `device`: on a card."""
+    return device.type == "cuda"
+
+
 def to_device(data, device) -> torch.Tensor:
-    """torch.as_tensor(data, device=device), data a numpy array or a
-    tensor in the dtype it keeps, as an eager allocation of its bytes
-    (allocate)."""
-    return allocate(partial(torch.as_tensor, data, device=device), device,
-                    data.nbytes)
+    """`data`, a numpy array or a tensor in the dtype it keeps, on
+    `device`: the port's one way onto a device (an ``api.upload`` span).
+    Host data bound for a card is copied once into pinned host memory
+    (torch's caching host allocator, which keeps the block until the copy
+    has read it) and from there, without the host waiting, on the current
+    stream, into a tensor allocated as an eager allocation (allocate).
+    Anything else is torch.as_tensor(data, device=device) as an eager
+    allocation of its bytes: a tensor already on `device` is returned as
+    it is."""
+    device = torch.device(device)
+    with timing.span("api.upload"):
+        if not _pinned(device) or (isinstance(data, torch.Tensor)
+                                   and data.device.type != "cpu"):
+            return allocate(partial(torch.as_tensor, data, device=device),
+                            device, data.nbytes)
+        host = torch.as_tensor(data).pin_memory()
+        out = allocate(partial(torch.empty_like, host, device=device),
+                       device, host.nbytes)
+        return out.copy_(host, non_blocking=True)
 
 
 class Capture:

@@ -69,6 +69,16 @@ def read_sk(path: str, n: int) -> bytes:
     return data
 
 
+def unpack_ternary_signed(packed, n: int) -> np.ndarray:
+    """2-bit packed ternary polynomial (4 coefficients per byte, most
+    significant pair first, value + 1), as the reference stores the secret
+    key and u -> signed int32 (n,) in {-1, 0, 1}."""
+    packed = np.frombuffer(bytes(packed), dtype=np.uint8)
+    i = np.arange(n)
+    shift = (6 - (i % 4) * 2).astype(np.uint8)
+    return (((packed[i // 4] >> shift) & 3).astype(np.int32) - 1)
+
+
 # ---------------------------------------------------------------- public key
 
 def write_pk(dirpath: str, parms: Parms, pk_components) -> None:

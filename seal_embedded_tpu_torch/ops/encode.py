@@ -25,8 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import Parms, bitrev
-from ..convert import CUDA
+from ..config import CUDA, Parms, bitrev
 from ..golden.encode import calc_index_map
 
 ENCODE_MODES = ("sf", "f64", "dd")

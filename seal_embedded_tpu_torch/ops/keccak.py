@@ -11,12 +11,20 @@ lane i = x + 5y (FIPS 202).  A round is vectorized over the lane axis:
 per-lane shift tensors for rho, an index gather for pi, rolled gathers
 for chi, so one round is about 20 torch ops.  ``>>`` on int64 is
 arithmetic, so every rotate masks the bits shifted in from the sign.
+
+``seed_words`` packs a call's 64-byte seeds into the (B, 16) words the
+samplers take (the API and the streaming call upload them).
 """
 
 from __future__ import annotations
 
+import collections
+import threading
+
 import numpy as np
 import torch
+
+from ..utils import timing
 
 RATE_WORDS = 34  # u32 words per 136-byte block
 MASK32 = 0xFFFFFFFF
@@ -91,6 +99,29 @@ def seed_to_words(seed: bytes) -> np.ndarray:
     """64-byte PRNG seed -> 16 u32 LE words."""
     seed = seed.ljust(64, b"\x00")
     return np.frombuffer(seed, dtype="<u4").copy()
+
+
+# How many seed batches seed_words packed each way: "seeds.joined" (every
+# seed 64 bytes: one view of their join) or "seeds.per_seed"
+# (seed_to_words a seed).  perf_spans.py reports it beside the spans of
+# the same work.
+input_paths = collections.Counter()
+_input_paths_lock = threading.Lock()
+
+
+def seed_words(seeds: list[bytes]) -> np.ndarray:
+    """A call's seeds -> int64 (B, 16) u32 words, as np.stack of
+    seed_to_words (an ``api.seed_pack`` span): one frombuffer of their
+    join where every seed is 64 bytes, else seed by seed (a short seed
+    zero-padded, what seed_to_words does)."""
+    with timing.span("api.seed_pack"):
+        joined = set(map(len, seeds)) == {64}
+        with _input_paths_lock:     # callers on several threads count each
+            input_paths["seeds.joined" if joined else "seeds.per_seed"] += 1
+        if joined:
+            return np.frombuffer(b"".join(seeds), dtype="<u4").reshape(
+                -1, 16).astype(np.int64)
+        return np.stack([seed_to_words(s) for s in seeds]).astype(np.int64)
 
 
 def align_seed(seed_words, counters):

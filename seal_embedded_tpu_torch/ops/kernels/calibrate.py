@@ -21,7 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ...convert import CUDA
+from ...config import CUDA
 from ...utils.timing import cuda_time_ms
 from ..calibrate import MIXES, check_mix, mix_plain, ops_per_iter
 from ..modarith import MASK32

@@ -47,8 +47,8 @@ from .ckks.fast import make_fused_encryptor
 from .ckks.limbwise import make_limbscan_encryptor
 from .ckks.stream import asym_encrypt_stream, sym_encrypt_stream
 from .ckks.sym import make_decryptor, sym_encrypt_batch
-from .config import PRIMES_27BIT, Parms, default_parms
-from .convert import CUDA, state_to_device
+from .config import CUDA, PRIMES_27BIT, Parms, default_parms
+from .convert import state_to_device
 from .graphs import to_device
 from .io import serialize
 from .ops.encode import ifft_root_tables_from_file, index_map_np, make_decoder

@@ -33,7 +33,7 @@ from typing import Callable
 
 import torch
 
-from ..convert import CUDA
+from ..config import CUDA
 
 
 @dataclasses.dataclass

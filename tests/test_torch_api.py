@@ -15,6 +15,7 @@ from seal_embedded_tpu.io import network as jnet
 from seal_embedded_tpu.io import serialize as jser
 from seal_embedded_tpu.ops.encode import decode as jdecode
 from seal_embedded_tpu_torch import api as tapi
+from seal_embedded_tpu_torch import graphs
 from seal_embedded_tpu_torch.ckks.fast import SymEncryptor
 from seal_embedded_tpu_torch.ckks.limbwise import expand_c1
 from seal_embedded_tpu_torch.ckks.sym import decrypt_batch
@@ -219,42 +220,54 @@ def test_seed_words_equal_the_per_seed_stack(case):
     where every seed is 64 bytes, seed by seed otherwise."""
     seeds = _seed_list(case)
     want = _outcome(_per_seed_words, seeds)
-    got = _outcome(tapi._seed_words, seeds)
+    got = _outcome(kc.seed_words, seeds)
     if isinstance(want, np.ndarray):
         assert isinstance(got, np.ndarray)
         assert got.dtype == want.dtype == np.int64
         assert got.shape == want.shape and np.array_equal(got, want)
-        dev = tapi._seed_words_batch(seeds, CPU)
+        dev = graphs.to_device(kc.seed_words(seeds), CPU)
         assert dev.dtype == torch.int64
         assert np.array_equal(dev.numpy(), want)
     else:
         assert got == want
 
 
-def fake_pinned(monkeypatch):
-    """The card's upload path on the CPU: every device stages, and a
-    "pinned" tensor is a fresh host copy, as torch's caching host
-    allocator hands out a block no pending copy reads."""
-    monkeypatch.setattr(tapi, "_pinned", lambda device: True)
-    monkeypatch.setattr(torch.Tensor, "pin_memory", torch.Tensor.clone)
+def count_pins(monkeypatch) -> list:
+    """Every pin_memory() call from here on, in a list (the tensor's
+    shape each); a "pinned" tensor is a fresh host copy, as torch's
+    caching host allocator hands out a block no pending copy reads."""
+    pins = []
+
+    def pin(t):
+        pins.append(tuple(t.shape))
+        return t.clone()
+    monkeypatch.setattr(torch.Tensor, "pin_memory", pin)
+    return pins
+
+
+def fake_pinned(monkeypatch) -> list:
+    """The card's upload path (graphs.to_device) on the CPU: every device
+    stages through pinned memory.  Returns count_pins's list."""
+    monkeypatch.setattr(graphs, "_pinned", lambda device: True)
+    return count_pins(monkeypatch)
 
 
 @pytest.mark.parametrize("seeds,device,paths", [
-    ("b16", "cpu", {"seeds.joined": 1, "upload.direct": 1}),
-    ("short_mixed", "cpu", {"seeds.per_seed": 1, "upload.direct": 1}),
-    ("long_68_all", "cpu", {"seeds.per_seed": 1, "upload.direct": 1}),
-    ("b16", "staged", {"seeds.joined": 1, "upload.pinned": 1}),
-    ("short_mixed", "staged", {"seeds.per_seed": 1, "upload.pinned": 1})])
+    ("b16", "cpu", {"seeds.joined": 1}),
+    ("short_mixed", "cpu", {"seeds.per_seed": 1}),
+    ("long_68_all", "cpu", {"seeds.per_seed": 1}),
+    ("b16", "staged", {"seeds.joined": 1}),
+    ("short_mixed", "staged", {"seeds.per_seed": 1})])
 def test_input_paths_count_each_path(monkeypatch, seeds, device, paths):
-    """api.input_paths counts a batch of 64-byte seeds as joined and any
-    other as seed by seed, and an upload as pinned where the device
-    stages (a card) and as direct on the CPU."""
-    if device == "staged":
-        fake_pinned(monkeypatch)
+    """keccak.input_paths counts a batch of 64-byte seeds as joined and
+    any other as seed by seed; their upload stages through pinned memory
+    where the device stages (a card) and not on the CPU."""
+    pins = (fake_pinned if device == "staged" else count_pins)(monkeypatch)
     seeds = _seed_list(seeds)
-    before = tapi.input_paths.copy()
-    words = tapi._seed_words_batch(seeds, CPU)
-    assert dict(tapi.input_paths - before) == paths
+    before = kc.input_paths.copy()
+    words = graphs.to_device(kc.seed_words(seeds), CPU)
+    assert dict(kc.input_paths - before) == paths
+    assert pins == ([(len(seeds), 16)] if device == "staged" else [])
     assert np.array_equal(words.numpy(), _per_seed_words(seeds))
 
 
@@ -266,21 +279,19 @@ def test_back_to_back_streaming_calls_equal_fresh_ones(monkeypatch, kind,
     its own values and seeds, give the limbs the same calls give one by
     one in fresh contexts: no call reads another's inputs."""
     from seal_embedded_tpu_torch.ckks import stream as tstream
-    if upload == "staged":
-        fake_pinned(monkeypatch)
+    pins = (fake_pinned if upload == "staged" else count_pins)(monkeypatch)
     kw = {"sk_seed": seed_bytes(1)}
     if kind == tapi.ASYM:
         kw["pk_seed"] = seed_bytes(4)
     rng = np.random.default_rng(11)
     calls = [(_values(60 + k), [rng.bytes(64) for _ in range(B)],
               [rng.bytes(64) for _ in range(B)]) for k in range(3)]
-    before = tapi.input_paths.copy()
     ctx = tapi.se_setup_custom(N, L, SCALE, kind, device=CPU, **kw)
+    before = len(pins)
     together = [tstream.se_encrypt_streaming(ctx, v, share, err)
                 for v, share, err in calls]
     uploads = (3 if kind == tapi.SYM else 2) * len(calls)
-    path = "upload.pinned" if upload == "staged" else "upload.direct"
-    assert (tapi.input_paths - before)[path] == uploads
+    assert len(pins) - before == (uploads if upload == "staged" else 0)
     for (v, share, err), got in zip(calls, together):
         fresh = tapi.se_setup_custom(N, L, SCALE, kind, device=CPU, **kw)
         want = tstream.se_encrypt_streaming(fresh, v.copy(), list(share),

@@ -630,7 +630,8 @@ def test_stream_ring_holds_two_limbs_whatever_the_chain(nprimes):
     """The compiled sym stream's limb outputs (through the fake capture)
     are RING_SLOTS slots of one limb's int32 c0, c1 and its ok, as many
     bytes at L = 3 as at L = 13 (n = 64, PRIMES_30BIT), and its limbs,
-    captured and replayed, are the eager stream's."""
+    captured and replayed, are those of the same stream on the CPU (its
+    steps run eagerly)."""
     b, n = 3, 64
     P = parms_from_jax(jcfg.Parms(degree=n, moduli=jcfg.PRIMES_30BIT[:nprimes],
                                   scale=2.0 ** 25))

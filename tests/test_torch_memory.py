@@ -475,13 +475,14 @@ def test_api_uploads_on_a_card_full_of_idle_entries_equal_jax(
 @pytest.mark.parametrize("path", ["seeded", "streaming"])
 def test_staged_api_uploads_on_a_card_full_of_idle_entries_equal_jax(
         monkeypatch, path):
-    """The same through the card's upload path (api._upload staging each
-    input in host memory, the device tensor an eager allocation): the
-    device tensors that run out evict idle entries as before."""
-    fake_pinned(monkeypatch)
-    before = tapi.input_paths.copy()
+    """The same through the card's upload path (graphs.to_device staging
+    each input in host memory, the device tensor an eager allocation):
+    the device tensors that run out evict idle entries as before."""
+    pins = fake_pinned(monkeypatch)
     _uploads_on_a_full_card(monkeypatch, path)
-    assert (tapi.input_paths - before)["upload.pinned"] == 3
+    # The context's secret key at set-up, then the call's values and two
+    # batches of seed words (n = 1024, B = 2).
+    assert pins == [(1024,), (2, 512), (2, 16), (2, 16)]
 
 
 def _uploads_on_a_full_card(monkeypatch, path):

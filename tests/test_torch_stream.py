@@ -182,9 +182,6 @@ def test_stream_argument_checks():
         tstream.sym_encrypt_stream(*args, tp, "f64", "sideways")
     with pytest.raises(ValueError, match="encode mode"):
         tstream.sym_encrypt_stream(*args, tp, "fp16")
-    with pytest.raises(ValueError, match="order"):
-        tstream.sym_stream_with(LimbscanEncryptor(tp, order="reverse", device="cpu"),
-                                *args, order="forward")
 
 
 # 13 limbs at n = 64: every prime of PRIMES_30BIT is 1 mod 65536, so the

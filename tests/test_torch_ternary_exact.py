@@ -176,15 +176,16 @@ def test_api_asym_rows_that_fell_short_equal_the_reference(
 
 
 def test_the_eager_and_public_streams_take_the_rule(cap_one):
-    """asym_stream_with (eager, on a prebuilt encryptor) and
-    asym_encrypt_stream (the compiled stream's public function), forward
-    and reverse, give the reference's limbs too, each limb its prime's."""
+    """The cached stream (asym_stream, whose steps the CPU runs eagerly)
+    called directly on the context's key, and asym_encrypt_stream (its
+    public function), forward and reverse, give the reference's limbs
+    too, each limb its prime's."""
     p, ctx, pk = _setup()
     values, seeds = _batch(p, seed=13)
     w = words(seeds)
     want0, want1 = rckks.asym_encrypt(p, pk[0], pk[1], values, seeds)
-    enc = tasym.AsymEncryptor(ctx.parms, *ctx._pk, device=CPU)
-    runs = [tstream.asym_stream_with(enc, torch.as_tensor(values), w)]
+    stream = tstream.asym_stream(ctx.parms, "forward", "cpu")
+    runs = [stream(torch.as_tensor(values), *ctx._pk, w)]
     runs += [tstream.asym_encrypt_stream(values, ctx.pk0, ctx.pk1, w,
                                          ctx.parms, order=order)
              for order in ("forward", "reverse")]

@@ -79,8 +79,12 @@ def test_a_streaming_call_gives_one_call_and_its_layers(kind, recording):
     (the CPU runs each step as it is reached) with that limb's
     fetch.queue, one fetch.wait, fetch.view and api.send a limb: every
     span with the call's id, inside its parent's interval.  The limbs
-    are those of the same call with the recorder off, their wait_ms 0.0."""
+    are those of the same call with the recorder off, their wait_ms 0.0.
+    The context's key uploads at set-up are spans outside any call."""
     ctx = _context(kind)
+    setup = timing.take_spans()
+    assert [(s.name, s.call) for s in setup] == \
+        [("api.upload", None)] * (1 if kind == "sym" else 3)
     sender, sent = tnet.collecting_sender()
     got = _call(ctx, sender)
     spans = timing.take_spans()
@@ -116,6 +120,7 @@ def test_a_streaming_call_gives_one_call_and_its_layers(kind, recording):
 
 def test_two_calls_have_their_own_ids(recording):
     ctx = _context("sym")
+    timing.take_spans()     # the set-up's upload, outside any call
     _call(ctx)
     _call(ctx)
     spans = timing.take_spans()
@@ -329,8 +334,8 @@ def test_a_device_mark_is_read_once_it_has_ended(recording):
 def test_perf_spans_prints_the_input_paths(tmp_path, monkeypatch, capsys):
     """perf_spans.py on the CPU, on a copy of the benchmark whose traffic
     runs B = 2: its line gives, beside seed_pack_ms and upload_ms, the
-    input paths its recorded windows took, every seed batch joined (the
-    traffic's seeds are 64 bytes) and every upload direct (no card)."""
+    seed packing paths its recorded windows took, every seed batch joined
+    (the traffic's seeds are 64 bytes)."""
     sys.path.insert(0, str(REPO))
     import perf_spans
     from benchmark import harness, traffic
@@ -347,5 +352,4 @@ def test_perf_spans_prints_the_input_paths(tmp_path, monkeypatch, capsys):
     spans = json.loads(capsys.readouterr().out.splitlines()[-1])["spans"]
     calls = spans["calls"]
     assert calls >= 1 and spans["seed_pack_ms"] > 0 and spans["upload_ms"] > 0
-    assert spans["input_paths"] == {"seeds.joined": 2 * calls,
-                                    "upload.direct": 3 * calls}
+    assert spans["input_paths"] == {"seeds.joined": 2 * calls}
