@@ -41,10 +41,11 @@ line each:
    also through the limb-scan encryptor, sym_encrypt_batch and expand_c1;
 4b. the ternary draw's unbounded redraw: two seeds whose first block
    needs more than 8 refills, planted in a B = 512 batch at 4096/3 and
-   16384/13, through ``se_encrypt_streaming`` asym: no call raises, the
-   rows run again are counted, the public key and the rows bit-equal to
-   the NumPy reference (``benchmark/reference``); the call's time with
-   and without the planted seeds;
+   16384/13, through ``se_encrypt_streaming`` asym: no call raises, no
+   row is run again (KK's ternary role draws them exact), the public key
+   and the rows bit-equal to the NumPy reference
+   (``benchmark/reference``); the call's time with and without the
+   planted seeds;
 5. the headline batches (sym, asym, limb-scan reference, parallel and
    reverse, sym_encrypt_batch), rows 0..5 golden where the layout is the
    reference's, the others checked by expand_c1 and decrypt_batch: timed
@@ -153,6 +154,13 @@ line each:
    first prime at both degrees, with ok-false rows (a queue of 8, chain
    C under the default cap), timed alone against its bound; the compiled
    sym streams at 4096/3 and 16384/13 launch it once a limb a call;
+   KK's ternary role (a call's whole ternary draw in one launch) bit-equal
+   to its plain version (sample_ternary_exact's loop on the CPU) at n =
+   4096, 8192 and 16384 and B = 1, 16, 512 and 1024, the planted seeds
+   and counters at 2^32 - 3 and 2^64 - 3 among the streams, and at n =
+   4096 with its window forced down to 1, 2, 33 and 97 counters; its
+   window's permutations beside those consumed, and its time alone
+   against its bound at (16384, 512) and (4096, 1024);
 
 11. entry: ``seal_embedded_tpu_torch.entry.entry()`` (the compiled
    ``sym_encrypt_batch`` at n = 4096, L = 3, B = 4) on the card, its
@@ -319,7 +327,7 @@ INT_OPS_PER_MIX_CHAIN = {"keccak": 3, "ntt": 2}
 SYM_PATH = ("keccak", "keccak_uniform", "keccak_cbd", "ntt", "ntt_pte",
             "encode")
 TABLE_PATH = ("keccak", "keccak_uniform", "keccak_cbd", "ntt", "encode")
-ASYM_PATH = ("keccak", "keccak_cbd", "ntt_asym", "encode")
+ASYM_PATH = ("keccak_ternary", "keccak_cbd", "ntt_asym", "encode")
 
 
 def seed_bytes(tag: int) -> bytes:
@@ -892,12 +900,13 @@ def exact_batch(n, batch, rng, planted=True):
 def phase_exact_ternary(dev, smi):
     """4b: the planted seeds whose ternary block needs more than 8
     refills, in a B = 512 batch at 4096/3 and 16384/13, through
-    se_encrypt_streaming (the compiled asym stream, its overflowed rows
-    encrypted again, asym.redo_overflowed): no call raises, the public
+    se_encrypt_streaming (the compiled asym stream, whose prologue draws
+    u with KK's ternary role, the redraw unbounded): no call raises, no
+    row is encrypted again (asym.redo_overflowed finds none), the public
     key and the rows (all at 4096/3, the planted and 12 more at depth)
     bit-equal to the NumPy reference (benchmark/reference); then the
     call's host-clock time with the seeds planted and without, median of
-    EXACT_ITERS each, in turns."""
+    EXACT_ITERS each, in turns: they should read equal."""
     from benchmark.catalog import Catalog
     from benchmark.reference import ckks as rckks
     from benchmark.reference.params import from_config
@@ -922,10 +931,10 @@ def phase_exact_ternary(dev, smi):
         limbs = stream.se_encrypt_streaming(ctx, values, err_seeds=seeds)
         torch.cuda.synchronize()
         redone = asym_mod.redo_counts()["rows"] - before["rows"]
-        if redone < len(EXACT_ROWS):
+        if redone:
             raise AssertionError(f"4b exact {config}: {redone} rows run "
-                                 f"again, fewer than the {len(EXACT_ROWS)} "
-                                 "planted")
+                                 "again; KK's ternary role draws every row "
+                                 "whole")
         if kept is None:
             rows = np.arange(batch)
         else:
@@ -1168,15 +1177,15 @@ def stream_launches(kind, parms) -> dict:
     must make, by counter of ops/kernels/counters.py (every other one 0).
     Sym: in the prologue KN's ntt(s), KE and KK's CBD role; a limb KK's
     queue squeeze, its uniform role and KN from pte.  Asym: in the
-    prologue KE, two KK squeezes per 96-byte block of the ternary u (the
-    block and its refills) and two CBD draws; a limb KA."""
+    prologue KE, KK's ternary role (the whole ternary u) and two CBD
+    draws; a limb KA."""
     L = parms.nprimes
     if kind == "sym":
         want = {"keccak": L, "keccak_uniform": L, "keccak_cbd": 1,
                 "ntt": 1, "ntt_pte": L, "encode": 1}
     else:
-        want = {"keccak": 2 * -(-parms.degree // 96), "keccak_cbd": 2,
-                "ntt_asym": L, "encode": 1}
+        want = {"keccak_ternary": 1, "keccak_cbd": 2, "ntt_asym": L,
+                "encode": 1}
     return {k: want.get(k, 0) for k in counters.COUNTERS}
 
 
@@ -2795,6 +2804,108 @@ def uniform_role(dev, smi):
     return rows
 
 
+TERNARY_NS = (4096, 8192, 16384)
+TERNARY_BS = (1, 16, 512, 1024)
+TERNARY_WINDOWS = (1, 2, 33, 97)   # forced: the walk stops, squeezes again
+TERNARY_ROWS = ((16384, 512), (4096, 1024))     # timed alone
+KT = ("seal_embedded_tpu/ops/sampling.py:330 sample_ternary (:309 "
+      "_ternary_block, :211 _rank_select)")
+
+
+def ternary_inputs(n, batch, dev):
+    """batch streams' seed words and counters from numpy seed n + batch:
+    EXACT_SEEDS (more than 8 refills in their first block) at rows 0 and
+    batch - 1, counters 2^32 - 3 and 2^64 - 3 at rows 1 and 2 (where the
+    batch has them), the others random."""
+    rng = np.random.default_rng(n + batch)
+    seeds = rng.integers(0, 2 ** 32, (batch, 16), dtype=np.int64)
+    ctr = rng.integers(0, 2 ** 32, (batch, 2), dtype=np.int64)
+    seeds[0] = kc.seed_to_words(exact_seed(EXACT_SEEDS[0]))
+    seeds[-1] = kc.seed_to_words(exact_seed(EXACT_SEEDS[-1]))
+    for row, value in ((1, 2 ** 32 - 3), (2, 2 ** 64 - 3))[:batch - 1]:
+        ctr[row] = (value & 0xFFFFFFFF, value >> 32)
+    return (torch.as_tensor(seeds, device=dev),
+            torch.as_tensor(ctr, device=dev))
+
+
+def ternary_check(name, seeds, ctr, n, want, shape=None):
+    """KK's ternary role (kernels.keccak.ternary_draw, or ternary_launch
+    with shape = (window, threads)) against want, its plain version's
+    (u, next counters), bit for bit; it must launch once.  Returns (the
+    role's outputs, a fn that launches it)."""
+    def fn():
+        if shape is None:
+            return k_keccak.ternary_draw(seeds, ctr, n)
+        return k_keccak.ternary_launch(seeds, ctr, n, *shape)
+    before = k_keccak.ternary_launches
+    got = fn()
+    torch.cuda.synchronize()
+    if k_keccak.ternary_launches - before != 1:
+        raise AssertionError(f"{name}: the ternary role launched "
+                             f"{k_keccak.ternary_launches - before} times")
+    for part, g, w in zip(("u", "next counter"), got, want):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"{name}: the ternary role's {part} "
+                                 "differs from its plain version")
+    return got, fn
+
+
+def ternary_role(dev, smi):
+    """Phase 10's KK ternary role (kernels.keccak.ternary_draw: a call's
+    whole ternary draw, the redraw unbounded, in one launch) against its
+    plain version (sample_ternary_exact's loop on the CPU, on the same
+    seeds and counters), values and next counters bit for bit, at every
+    n of TERNARY_NS and B of TERNARY_BS, the planted seeds and counters
+    at 2^32 - 3 and 2^64 - 3 among them (ternary_inputs); at n = 4096, B
+    = 16, windows forced down to TERNARY_WINDOWS, so that the walk stops
+    and the CTA squeezes again.  Prints the window's permutations beside
+    those consumed (next counter - c0).  Returns the kernel rows of
+    TERNARY_ROWS (timed alone later, beside their bounds, the
+    permutations counted as benchmark/metrics/keccak_roofline.py counts
+    them)."""
+    rows = []
+    kk = "seal_embedded_tpu_torch/csrc/keccak.cu"
+    r = 2 / 256
+    for n in TERNARY_NS:
+        for batch in TERNARY_BS:
+            seeds, ctr = ternary_inputs(n, batch, dev)
+            t0 = time.perf_counter()
+            want = sp.sample_ternary_exact(seeds.cpu(), ctr.cpu(), n)
+            pms = (time.perf_counter() - t0) * 1e3
+            name = f"ternary n={n} B={batch}"
+            got, fn = ternary_check(name, seeds, ctr, n, want)
+            window, threads = k_keccak.ternary_shape(n, batch)
+            used = [((a | b << 32) - (c | d << 32)) % 2 ** 64
+                    for (a, b), (c, d) in zip(got[1].tolist(),
+                                              ctr.tolist())]
+            again = sum(u > window - 33 for u in used)
+            print(f"[10 ternary] {name}: KK's ternary role bit-equal to its "
+                  f"plain version (u, next counters; seeds {EXACT_SEEDS} "
+                  f"planted, counters 2^32 - 3 and 2^64 - 3), window "
+                  f"{window}, {threads} threads a CTA: {batch * window} "
+                  f"permutations in the first windows, "
+                  f"{sum(used)} consumed, unused share "
+                  f"{1 - sum(used) / (batch * window):.4f}, "
+                  f"{again} streams squeezed again; plain {pms:.1f} ms on "
+                  f"the CPU; {smi}")
+            if (n, batch) in TERNARY_ROWS:
+                ms = cuda_time_ms(fn, TIME_ITERS)
+                perms = batch * (-(-n // 96) + n * r / (1 - r))
+                rows.append(kernel_row(
+                    f"ternary_draw n={n} B={batch}", kk, KT,
+                    "keccak_ternary", 0, fn, ms, pms,
+                    f"{batch} streams x {-(-n // 96)} blocks, window "
+                    f"{window} (plain: the CPU loop)", ("keccak", perms),
+                    u32_bytes(seeds, ctr, got[1]) + got[0].numel()))
+            if (n, batch) == (4096, 16):
+                for w in TERNARY_WINDOWS:
+                    ternary_check(f"{name} window {w}", seeds, ctr, n, want,
+                                  (w, 32 * -(-w // 32)))
+                print(f"[10 ternary] {name}: bit-equal with the window "
+                      f"forced to each of {TERNARY_WINDOWS} counters; {smi}")
+    return rows
+
+
 def custom_row(n, sym_b, asym_b, sym_names, asym_names, mesh, dev, smi):
     """One phase 10 row at degree n on the custom chain: the compiled
     fused sym batch (sym_b) and asym batch (asym_b, pk from gen_pk_batch)
@@ -2955,6 +3066,7 @@ def phase_custom(dev, smi, sm_hz):
             runs.update(r)
             rows += k
     rows += uniform_role(dev, smi)
+    rows += ternary_role(dev, smi)
     set_kernel_alone_ms(rows)
     for r in rows:
         print(f"[10 kernels] {bound_line(r, sm_hz)}; "

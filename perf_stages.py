@@ -259,6 +259,7 @@ STAGES = [
     ("ckks.fast:EncryptorBase", "encode", "encode (KE)"),
     ("ops.sampling", "sample_cbd", "CBD"),
     ("ops.sampling", "sample_ternary", "ternary"),
+    ("ops.sampling", "sample_ternary_exact", "ternary"),
     ("ops.sampling", "sample_uniform", "uniform draw"),
     ("ops.sampling", "_squeeze", squeeze_label),
     ("ops.sampling", "_rank_select", "rank-select"),

@@ -12,12 +12,14 @@ Port of ``seal_embedded_tpu/ckks/asym.py`` (ckks_asym.c:159-286):
   limbs go through kernel KA in one launch, at every degree, straight
   from the signed (B, n) u, e1 and the int64 pte (KA maps and reduces
   them per limb as it loads them).
-* the ternary draw's bounded queue (sp.TERNARY_QUEUE_CAP refills a
-  96-byte block) falls short for about 1.5e-7 of the blocks, where the C
-  loop redraws without bound.  The batch flags those rows apart from the
-  encode's overflow (``ternary_ok``), and the API's asym entries encrypt
-  them again exactly (``redo_overflowed``), so that every seed gives the
-  C reference's bits.
+* the ternary draw: on the card KK's ternary role redraws without bound,
+  as the C loop does, so ``ternary_ok`` is true on every row and
+  ``redo_overflowed`` finds nothing to encrypt again.  On the CPU the
+  draw's bounded queue (sp.TERNARY_QUEUE_CAP refills a 96-byte block)
+  falls short for about 1.5e-7 of the blocks; the batch flags those rows
+  apart from the encode's overflow (``ternary_ok``), and the API's asym
+  entries encrypt them again exactly (``redo_overflowed``), so that every
+  seed gives the C reference's bits.
 
 On CPU tensors every kernel wrapper runs its plain version, so the same
 module is the reference path of the tests.
@@ -59,7 +61,7 @@ class AsymEncryptor(EncryptorBase):
     PRNG seeds) returns a dict with c0, c1 int64 (L, B, n) u32 values, pt
     and pte int64 (B, n) and ok bool (B,), the layouts of the JAX function,
     and ternary_ok bool (B,), false where the ternary draw's bounded
-    queue fell short (ok is false there too).
+    queue fell short (ok is false there too; only on the CPU, see draws).
     """
 
     def __init__(self, parms: Parms, pk0=None, pk1=None, device=CUDA):
@@ -107,13 +109,16 @@ class AsymEncryptor(EncryptorBase):
         """Encode (KE), then the private stream's draws, counters chaining
         u -> e0 -> e1 (ckks_asym.c:173-203): (pt, pte = pt + e0, u, e1
         int64 (B, n), the encode's ok and the ternary draw's ok (B,)).
-        With exact the ternary draw redraws without bound
-        (sp.sample_ternary_exact: eager, the host reads each block's
-        flags) and its ok is true."""
+        On the card the ternary draw redraws without bound
+        (sp.sample_ternary_exact: KK's ternary role, one launch that a
+        graph captures) and its ok is true; so on the CPU with exact (the
+        role's plain version: eager, the host reads each block's flags).
+        On the CPU without exact it is the bounded sp.sample_ternary,
+        whose ok is false where a block's 8 refills fell short."""
         n = self.parms.degree
         pt, ok = self.encode(values)
         counter = sp.counter_zero((values.shape[0],), values.device)
-        if exact:
+        if exact or counter.device.type != "cpu":
             u, counter = sp.sample_ternary_exact(seed_words, counter, n)
             ternary_ok = torch.ones_like(ok)
         else:

@@ -1,5 +1,5 @@
 // Kernel KK: SHAKE-256 squeezes of (seed || counter_le8) streams, and the
-// CBD error values and the uniform draw drawn from them.
+// CBD error values, the uniform draw and the ternary draw drawn from them.
 //
 // Replaces seal_embedded_tpu/ops/kernels/keccak.py: _squeeze_call / _kernel
 // (K1, a multi-block squeeze, the uniform sampler's base draw) and
@@ -7,9 +7,11 @@
 // only their first `nwords` rate words: the rejection queues, the ternary
 // blocks and the CBD error).  The uniform role (keccak_uniform_kernel,
 // below) runs K1's squeeze with the rank-select and barrett32 of the
-// sampler around it.  Every entry reads the caller's int64 seeds and
-// counters (u32 values, low 32 bits used) and writes int64 u32 words or
-// values, so the wrapper copies nothing.
+// sampler around it; the ternary role (keccak_ternary_kernel) squeezes
+// windows of one stream's counters and walks its blocks over them.  Every
+// entry reads the caller's int64 seeds and counters (u32 values, low 32
+// bits used) and writes int64 u32 words or values, so the wrapper copies
+// nothing.
 //
 // Streams.  Seed s (of S) has `per_seed` streams; stream j of seed s
 // absorbs counter c_s + start + j mod 2^64 (the sampler's counter
@@ -488,6 +490,159 @@ __global__ void keccak_cbd_kernel(const long long* __restrict__ seeds,
     out[16 * g0 + e] = tile[(e >> 4) * 17 + (e & 15)];
 }
 
+// The ternary draw of one stream (sample_small_poly_ternary_prng_96,
+// sample.c:218-242), one CTA a stream.  Replaces the JAX package's
+// sample_ternary (seal_embedded_tpu/ops/sampling.py:330) with its
+// _ternary_block (:309) and _rank_select (:211), which the port ran as
+// 171 dependent blocks at n = 16384, each two K2 launches (the block and
+// its 8 one-byte refills) and some 15 torch passes of the rank-select.
+//
+// The draw consumes consecutive counters c0, c0 + 1, ..., each a block's
+// base (its 96 bytes) or a refill (its first byte): block k's refills are
+// the counters after its base, taken in order, rejected ones included, and
+// the next block's base is the first counter its refills left.  So every
+// permutation the draw needs is independent of the others, and only the
+// walk that decides which counter is a base is sequential.  The CTA
+// squeezes a window of `window` consecutive counters at once, one thread a
+// permutation in registers as keccak_1blk_kernel (the single-block roles
+// ran at 0.82 of the integer bound), keeping each one's 24 words in a ring
+// of window + 32 slots in shared memory; then warp 0 walks the blocks:
+// lane t holds bytes 3t .. 3t + 2 of the base, three ballots rank its
+// rejected bytes (>= 0xFE, within the first `here` bytes of a tail block),
+// lane t reads the first byte of refill q + t, a ballot ranks the accepted
+// ones (< 0xFE), and the j-th rejected byte takes the j-th accepted refill
+// through `taken`, 32 refills a step until the block has them all.  The
+// next base is the counter after the last refill taken.  A block starts
+// only with 33 counters squeezed from its base on, a refill step only with
+// 32; otherwise the walk stops (a block in the middle of its refills keeps
+// its bytes in registers), the CTA squeezes the next `window` counters
+// into the slots the walk has left, and the walk goes on.  So the redraw
+// has no bound, as in the C loop, and no host read: one launch, capturable
+// in a graph.  Nothing leaves the chip but the values and the next counter.
+//
+// Bound on the H100: the integer rate, for the permutations the draw
+// consumes (ceil(n / 96) + n r / (1 - r) a stream expected, r = 2/256:
+// about 300 at n = 16384, 512 streams 0.037 ms), against 8 bytes a value
+// written.  The window computes the consumed ones and up to window minus
+// them more (the wrapper sizes it at 8 sigma above the mean plus the
+// walk's 32 of look-ahead), so the work is about 1.4 times the count; the
+// walk's 171 steps at n = 16384, a few hundred cycles each, overlap other
+// CTAs' squeezes.
+constexpr int kTernaryBytes = 96;
+constexpr int kTernaryLook = 32;  // refills a walk step reads
+
+__global__ void __launch_bounds__(512)
+    keccak_ternary_kernel(const long long* __restrict__ seeds,
+                          const long long* __restrict__ ctrs,
+                          long long* __restrict__ u_out,
+                          long long* __restrict__ next_ctr, int n,
+                          int window) {
+  extern __shared__ uint32_t ring[];  // word k of slot i: ring[k * slots + i]
+  __shared__ int taken[kTernaryBytes];
+  __shared__ bool done;
+  const long long s = blockIdx.x;
+  const int slots = window + kTernaryLook;
+  const long long* seed = seeds + s * 16;
+  long long* u = u_out + s * n;
+  const int nblocks = (n + kTernaryBytes - 1) / kTernaryBytes;
+  const int tail = n - (nblocks - 1) * kTernaryBytes;
+  const unsigned full = 0xffffffffu;
+  const int t = threadIdx.x & 31;
+  const unsigned below = (1u << t) - 1;
+
+  // Offsets from c0: [0, filled) squeezed; the walk (warp 0, uniform over
+  // it) is at block b whose base is at p, and in its refills (mid) at q,
+  // with `got` of its `need` rejected bytes given.  Lane t's bytes v and,
+  // where rejected, their ranks.
+  unsigned long long filled = 0, p = 0, q = 0;
+  int b = 0, need = 0, got = 0;
+  bool mid = false;
+  uint32_t v[3];
+  int rank[3];
+  for (;;) {
+    for (int i = threadIdx.x; i < window; i += blockDim.x) {
+      const unsigned long long off = filled + i;
+      uint64_t st[25];
+      absorb(st, seed, stream_counter(ctrs, s, off));
+      keccak_f1600(st);
+      uint32_t* w = ring + (int)(off % slots);
+#pragma unroll
+      for (int k = 0; k < 12; ++k) {
+        w[(2 * k) * slots] = (uint32_t)st[k];
+        w[(2 * k + 1) * slots] = (uint32_t)(st[k] >> 32);
+      }
+    }
+    filled += window;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      for (;;) {
+        const int here = b == nblocks - 1 ? tail : kTernaryBytes;
+        if (!mid) {
+          if (b == nblocks || filled - p < kTernaryLook + 1) break;
+          const uint32_t* base = ring + (int)(p % slots);
+          bool rej[3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            const int j = 3 * t + i;
+            v[i] = (base[(j >> 2) * slots] >> (8 * (j & 3))) & 0xFF;
+            rej[i] = j < here && v[i] >= 0xFE;
+          }
+          const unsigned b0 = __ballot_sync(full, rej[0]);
+          const unsigned b1 = __ballot_sync(full, rej[1]);
+          const unsigned b2 = __ballot_sync(full, rej[2]);
+          const int r = __popc(b0 & below) + __popc(b1 & below) +
+                        __popc(b2 & below);
+          rank[0] = rej[0] ? r : -1;
+          rank[1] = rej[1] ? r + rej[0] : -1;
+          rank[2] = rej[2] ? r + rej[0] + rej[1] : -1;
+          need = __popc(b0) + __popc(b1) + __popc(b2);
+          got = 0;
+          q = p + 1;
+          mid = need > 0;
+        }
+        if (mid) {
+          if (filled - q < kTernaryLook) break;
+          const uint32_t x = ring[(int)((q + t) % slots)] & 0xFF;
+          const bool acc = x < 0xFE;
+          const unsigned a = __ballot_sync(full, acc);
+          const int k = got + __popc(a & below);
+          if (acc && k < need) taken[k] = (int)x;
+          __syncwarp();
+          const int upto = min(need, got + __popc(a));
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            if (rank[i] >= got && rank[i] < upto) v[i] = taken[rank[i]];
+          __syncwarp();
+          if (upto < need) {
+            got = upto;
+            q += kTernaryLook;
+            continue;
+          }
+          // The refill of rank need - 1 ends the block.
+          p = q + __ffs(__ballot_sync(full, acc && k == need - 1));
+          mid = false;
+        } else {
+          p += 1;
+        }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const int j = 3 * t + i;
+          if (j < here) u[b * kTernaryBytes + j] = (long long)(v[i] % 3) - 1;
+        }
+        ++b;
+      }
+      if (t == 0) done = b == nblocks;
+    }
+    __syncthreads();
+    if (done) break;
+  }
+  if (threadIdx.x == 0) {
+    const uint64_t next = stream_counter(ctrs, s, p);
+    next_ctr[2 * s] = (long long)(uint32_t)next;
+    next_ctr[2 * s + 1] = (long long)(uint32_t)(next >> 32);
+  }
+}
+
 }  // namespace
 
 // seeds (S, 16), ctrs (S, 2) int64 u32 values -> out (S * per_seed,
@@ -551,5 +706,22 @@ extern "C" int sek_keccak_uniform(const void* seeds, const void* ctrs,
       (const long long*)seeds, (const long long*)ctrs,
       (const long long*)queue, (long long*)a, (long long*)next_ctr,
       (bool*)ok, nseeds, n, q, r1, mm, cap, chunk_n, chunk_k);
+  return (int)cudaGetLastError();
+}
+
+// The ternary draw of S streams: seeds (S, 16), ctrs (S, 2) int64 u32
+// values -> u (S, n) int64 in {-1, 0, 1}, next_ctr (S, 2) int64 u32 pairs.
+// One CTA of `threads` a stream, its ring of window + 32 slots of 24 words
+// in dynamic shared memory (the wrapper keeps it within 48 KiB).
+extern "C" int sek_keccak_ternary(const void* seeds, const void* ctrs,
+                                  void* u, void* next_ctr, long long nseeds,
+                                  int n, int window, int threads,
+                                  void* stream) {
+  if (nseeds <= 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)(window + kTernaryLook) * 24 * 4;
+  keccak_ternary_kernel<<<(unsigned)nseeds, threads, smem,
+                          (cudaStream_t)stream>>>(
+      (const long long*)seeds, (const long long*)ctrs, (long long*)u,
+      (long long*)next_ctr, n, window);
   return (int)cudaGetLastError();
 }

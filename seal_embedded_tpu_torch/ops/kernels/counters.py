@@ -19,6 +19,7 @@ from . import calibrate, encode, keccak, ntt
 COUNTERS = {"keccak": (keccak, "launches"),
             "keccak_cbd": (keccak, "cbd_launches"),
             "keccak_uniform": (keccak, "uniform_launches"),
+            "keccak_ternary": (keccak, "ternary_launches"),
             "ntt": (ntt, "launches"), "ntt_pte": (ntt, "pte_launches"),
             "ntt_asym": (ntt, "asym_launches"),
             "encode": (encode, "launches"), "calib": (calibrate, "launches")}

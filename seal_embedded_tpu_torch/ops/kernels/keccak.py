@@ -1,5 +1,5 @@
 """Wrapper of kernel KK (``csrc/keccak.cu``): batched SHAKE-256 squeezes,
-the CBD error values and the uniform draw of one limb.
+the CBD error values, the uniform draw of one limb and the ternary draw.
 
 ``keccak_squeeze`` serves both TPU kernels it replaces: the multi-block
 squeeze (K1, ``nblocks > 1``) and the single-block streams that keep only
@@ -13,12 +13,15 @@ CUDA tensors it launches KK or raises.  ``uniform_draw`` is KK's uniform
 role: the base squeeze, the rank-select against a queue drawn by
 ``keccak_squeeze`` and ``barrett32`` in one launch; it takes CUDA tensors
 only, its plain version being ``ops.sampling.sample_uniform``'s torch
-path.
+path.  ``ternary_draw`` is KK's ternary role: a whole call's ternary
+draw, the unbounded redraw included, in one launch; CUDA tensors only,
+its plain version being ``ops.sampling.sample_ternary_exact``'s loop.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -29,6 +32,7 @@ from . import build
 launches = 0
 cbd_launches = 0
 uniform_launches = 0
+ternary_launches = 0
 
 
 def _check_streams(name, seeds, counters):
@@ -162,3 +166,76 @@ def uniform_draw(seeds, counters, queue, n: int, q: int, r1: int,
                    build.stream(a)), name)
     uniform_launches += 1
     return a, nxt, ok
+
+
+# The ternary role keeps a stream's ring of window + 32 slots of 96 bytes
+# in shared memory, within the 48 KiB a block may take without asking
+# (its walk's 400 bytes beside it): a window of up to 475 counters.
+TERNARY_MAX_WINDOW = 475
+# A ternary byte is drawn again at or above 0xFE.
+_TERNARY_REJECT = 2 / 256
+# Threads a launch aims at: about 500 on each of the H100's 132 SMs.
+_TERNARY_THREADS = 65536
+
+
+def ternary_shape(n: int, streams: int) -> tuple[int, int]:
+    """(window, threads) of KK's ternary role at degree n for `streams`
+    streams: window, the counters a CTA squeezes at once, covers the
+    ceil(n / 96) bases, the refills' mean n r / (1 - r) and 8 times their
+    spread sqrt(n r) / (1 - r) (r = 2/256), and the walk's 32 counters of
+    look-ahead, odd (the ring's rows then fall on distinct banks) and at
+    most TERNARY_MAX_WINDOW (a longer draw squeezes more windows); threads,
+    a CTA's, enough to squeeze the window in one pass where the streams are
+    few, and 128 from about 512 streams on, where the CTAs fill the card."""
+    r = _TERNARY_REJECT
+    refills = n * r / (1 - r) + 8 * math.sqrt(n * r) / (1 - r)
+    window = min(-(-n // 96) + math.ceil(refills) + 32,
+                 TERNARY_MAX_WINDOW) | 1
+    fill = 32 * -(-_TERNARY_THREADS // (32 * max(streams, 1)))
+    return window, min(512, 32 * -(-window // 32), max(128, fill))
+
+
+def ternary_draw(seeds, counters, n: int):
+    """The ternary draw of S streams (sample_small_poly_ternary_prng_96,
+    sample.c:218-242), the C loop's unbounded redraw included: n // 96
+    blocks of 96 bytes, then a tail of n % 96 whose later bytes cannot
+    reject; each byte >= 0xFE takes, in rank order, the next refill
+    (the first byte of a one-block draw at the counters after the
+    block's) below 0xFE; each value byte % 3 - 1; the next block at the
+    counter after the last refill taken.
+
+    seeds: int64 (S, 16), counters: int64 (S, 2) u32 values.  Returns (u
+    int64 (S, n) in {-1, 0, 1}, next counters int64 (S, 2)).  CUDA tensors
+    only: the plain version is ``ops.sampling.sample_ternary_exact``'s
+    loop on CPU tensors."""
+    return ternary_launch(seeds, counters, n,
+                          *ternary_shape(n, seeds.shape[0]))
+
+
+def ternary_launch(seeds, counters, n: int, window: int, threads: int):
+    """ternary_draw with the CTA's window and threads given (ternary_draw
+    derives them; chip_smoke.py also forces small windows, so that the
+    walk stops and the CTA squeezes again on the card)."""
+    global ternary_launches
+    name = "ternary_draw"
+    _check_streams(name, seeds, counters)
+    build.require(n >= 1, f"{name}: n must be >= 1")
+    build.require(1 <= window <= TERNARY_MAX_WINDOW,
+                  f"{name}: window must be in [1, {TERNARY_MAX_WINDOW}], "
+                  f"got {window}")
+    build.require(32 <= threads <= 512 and threads % 32 == 0,
+                  f"{name}: threads must be a multiple of 32 in [32, 512]")
+    build.require(not build.on_cpu(name, seeds, counters),
+                  f"{name}: CUDA tensors only; on the CPU "
+                  f"ops.sampling.sample_ternary_exact runs the plain version")
+    S = seeds.shape[0]
+    u = torch.empty((S, n), dtype=torch.int64, device=seeds.device)
+    nxt = torch.empty((S, 2), dtype=torch.int64, device=seeds.device)
+    fn = build.entry("sek_keccak_ternary",
+                     [ctypes.c_void_p] * 4
+                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p])
+    build.check(fn(*map(build.ptr, (seeds, counters, u, nxt)), S, n, window,
+                   threads, build.stream(u)), name)
+    ternary_launches += 1
+    return u, nxt

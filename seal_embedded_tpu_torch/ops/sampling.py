@@ -10,19 +10,20 @@ device/lib/sample.c), with the same PRNG byte-consumption pattern:
 * The ternary sampler does the same per 96-byte block, with 8 one-byte
   refills; its blocks run in sequence, since each block's counter
   depends on the rejections of the blocks before it.  Its exact form
-  (``sample_ternary_exact``) runs a block whose 8 refills fell short
-  again with twice the refills, until none does: the C loop's unbounded
-  redraw.
+  (``sample_ternary_exact``) has the C loop's unbounded redraw.
 * Counters are u64 values carried as int64 (..., 2) (lo, hi) u32 pairs,
   with the carry into hi on every offset path.
 
 On CUDA tensors the uniform draw is one KK role a limb
 (``kernels.keccak.uniform_draw``: the base squeeze, the rank-select and
-``barrett32`` in one launch, after KK's queue launch); on CPU tensors it
-runs the torch path below, the role's plain version.  The ternary draw's
-rank-select stays torch ops (topk, stable sort, scatter), as the JAX
-package left it to XLA.  Every SHAKE squeeze goes through kernel KK's
-wrapper.  All u32 values are int64 tensors in [0, 2^32).
+``barrett32`` in one launch, after KK's queue launch), and the exact
+ternary draw one KK role a call (``kernels.keccak.ternary_draw``: every
+block of every stream, the redraw unbounded, in one launch).  On CPU
+tensors each runs the torch path below, the role's plain version: the
+rank-select in torch ops (topk, stable sort, scatter), as the JAX package
+left it to XLA.  The bounded ``sample_ternary`` stays torch ops on any
+device.  Every SHAKE squeeze goes through kernel KK's wrapper.  All u32
+values are int64 tensors in [0, 2^32).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ import torch
 
 from .keccak import MASK32, align_seed, words_to_bytes
 from .kernels import build
-from .kernels.keccak import cbd_values, keccak_squeeze, uniform_draw
+from .kernels.keccak import (cbd_values, keccak_squeeze, ternary_draw,
+                             uniform_draw)
 from .modarith import _q, as_mod, barrett32
 
 # One-byte refills drawn per 96-byte ternary block (sample.c:228-233):
@@ -363,12 +365,19 @@ def sample_ternary(seed_words, counter, n: int):
 
 def sample_ternary_exact(seed_words, counter, n: int):
     """sample_ternary with the C loop's unbounded redraw, for B streams:
-    seed_words (B, 16), counter (B, 2).  A block whose TERNARY_QUEUE_CAP
-    refills hold fewer accepted bytes than it rejected is drawn again,
-    for those streams, with twice the refills, until every stream's
-    block is whole; a block the cap held keeps its bits.  The host reads
-    each block's flags.  Returns (signed {-1, 0, 1} int64 (B, n),
-    next_counter), every stream drawn whole."""
+    seed_words (B, 16), counter (B, 2).  Returns (signed {-1, 0, 1} int64
+    (B, n), next_counter), every stream drawn whole.
+
+    On CUDA tensors it is KK's ternary role (kernels.keccak.ternary_draw),
+    one launch with no host read.  On CPU tensors it runs the role's plain
+    version, the loop below: a block whose TERNARY_QUEUE_CAP refills hold
+    fewer accepted bytes than it rejected is drawn again, for those
+    streams, with twice the refills, until every stream's block is whole;
+    a block the cap held keeps its bits.  The host reads each block's
+    flags."""
+    seeds, ctrs = _flat_streams(seed_words, counter)
+    if not build.on_cpu("sample_ternary_exact", seeds, ctrs):
+        return ternary_draw(seeds, ctrs, n)
     blocks = []
     for count_here in _block_sizes(n):
         vals, after, ok = _ternary_block(seed_words, counter, count_here)
