@@ -4,7 +4,9 @@ A cell (an entry of ``workloads``) names a configuration, whose file
 BENCHMARK.json gives, and a traffic mix, ``traffic/<name>.json`` beside
 this file.  A per-layer metric lists the cells that report it under
 ``workloads`` and is read by ``metrics/<name>.py``, a module with
-``read(obs) -> float | None``.  Nothing here imports torch.
+``read(obs) -> float | None``.  A traffic mix's ``send`` names a wire
+form, ``wire/<form>.py`` (what a form module gives: wire/components.py).
+Nothing here imports torch.
 """
 
 from __future__ import annotations
@@ -53,12 +55,21 @@ class Catalog:
 
     def reader(self, name: str):
         """The module of metrics/<name>.py."""
-        path = self.metric_files()[name]
-        spec = importlib.util.spec_from_file_location(
-            f"benchmark_metric_{name.replace('.', '_')}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module
+        return _load(self.metric_files()[name], "benchmark_metric", name)
+
+    def wire_files(self) -> dict:
+        """Wire form name -> the file that reads it."""
+        return {p.name[:-3]: p
+                for p in sorted((self.home / "wire").glob("*.py"))}
+
+    def wire(self, form: str):
+        """The module of wire/<form>.py; ValueError for a form there is no
+        file of."""
+        files = self.wire_files()
+        if form not in files:
+            raise ValueError(f"no wire form {form!r}: benchmark/wire/ has "
+                             f"{sorted(files)}")
+        return _load(files[form], "benchmark_wire", form)
 
     def end_to_end(self, cell: str) -> list[dict]:
         """Every cell reports every end-to-end metric."""
@@ -68,3 +79,12 @@ class Catalog:
         """The per-layer metrics a traced run of `cell` reports: those
         whose `workloads` list it (every per-layer metric has the list)."""
         return [m for m in self.spec["per_layer"] if cell in m["workloads"]]
+
+
+def _load(path: pathlib.Path, prefix: str, name: str):
+    """The module of the file at `path`, named after `prefix` and `name`."""
+    spec = importlib.util.spec_from_file_location(
+        f"{prefix}_{name.replace('.', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

@@ -15,7 +15,9 @@
    err_seeds=..., order="forward")`` until --seconds have passed.  Each
    call is timed on the host clock from the entry to its last limb in
    host memory, with its inputs already made and the last call's
-   outputs released.
+   outputs released.  Where the traffic names a wire form (``send``),
+   the call also hands every chunk of its ciphertexts to a Sink, and
+   the kept messages are read from the bytes sent (wire/<form>.py).
 5. With --trace 1, traced segments after the window (trace.py), their
    calls' seeds made before them.
 6. The program's state freed, the check (check.py).
@@ -60,6 +62,7 @@ class Call:
     end: float
     wait_ms: float     # the host's wait for the limbs' copies
     messages: int      # messages done, every limb in host memory, ok
+    send_ms: float = 0.0   # Sink.send_ms: the limbs' first to last chunk
 
     @property
     def ms(self) -> float:
@@ -100,19 +103,74 @@ class Window:
     unprepared: int          # calls whose seeds were made in the window
 
 
-def walk_errors(out, moduli, batch: int, n: int) -> int:
-    """Limbs missing, out of the chain's order, out of shape, or not ok."""
+def walk_errors(out, moduli, batch: int, n: int, arrays=True) -> int:
+    """Limbs missing, out of the chain's order, not ok, or, where the
+    limbs' arrays are what the call delivers (`arrays`), out of shape."""
     bad = abs(len(out) - len(moduli))
     for j, limb in enumerate(out[:len(moduli)]):
         bad += not (limb["prime_idx"] == j and limb["q"] == moduli[j]
                     and limb["ok"] is True
-                    and limb["c0"].shape == limb["c1"].shape == (batch, n)
-                    and limb["c0"].dtype == limb["c1"].dtype == np.uint32)
+                    and (not arrays or (
+                        limb["c0"].shape == limb["c1"].shape == (batch, n)
+                        and limb["c0"].dtype == limb["c1"].dtype
+                        == np.uint32)))
     return bad
+
+
+class Sink:
+    """The send callback of a cell whose traffic names a wire form.
+
+    ``send`` only appends each chunk, as handed over, to ``chunks``, and
+    reads the host clock (perf_counter_ns) at each limb's first and last
+    chunk, found by count (the form's limb_chunks): two clock reads a
+    limb.  It is a generator's send, so that a limb's edges lie in the
+    loop's shape and no chunk pays a test for them (a function that
+    counts and tests each chunk costs some 60% more).  ``reset`` starts
+    a call: a fresh callback and lists, the last call's chunks
+    released."""
+
+    def __init__(self, limb_chunks: int):
+        self.limb_chunks = limb_chunks
+        self.reset()
+
+    def reset(self) -> None:
+        self.chunks, self.stamps = [], []
+        receive = self._receive(self.chunks.append, self.stamps.append)
+        next(receive)
+        self.send = receive.send
+
+    def _receive(self, append, stamp):
+        ns, middle = time.perf_counter_ns, range(self.limb_chunks - 2)
+        while True:
+            chunk = yield
+            stamp(ns())
+            append(chunk)
+            if self.limb_chunks > 1:
+                for _ in middle:
+                    append((yield))
+                append((yield))
+            stamp(ns())
+
+    def send_ms(self) -> float:
+        """The call's sum over limbs of its first chunk to its last."""
+        s = self.stamps
+        return sum(b - a for a, b in zip(s[::2], s[1::2])) * 1e-6
+
+
+def astray(out, got, row: int) -> int:
+    """Limbs whose bytes sent for message `row`, `got` (c0, c1) (L, n),
+    differ from the limb the call returned: chunks sent out of place."""
+    if got[0].shape != (len(out), got[0].shape[-1]):
+        return len(out)
+    return sum(not (np.array_equal(got[0][j], limb["c0"][row])
+                    and np.array_equal(got[1][j], limb["c1"][row]))
+               for j, limb in enumerate(out))
 
 
 class Cell:
     """A cell's inputs, its context on `dev` and its encrypt call."""
+
+    wire = sink = None      # the traffic's wire form and Sink, if it sends
 
     def __init__(self, catalog: Catalog, name: str, seed: int, dev):
         t0 = time.perf_counter()
@@ -125,6 +183,10 @@ class Cell:
         self.mix = catalog.traffic(self.spec["traffic"])
         self.params = from_config(self.config)
         self.traffic = Traffic(self.params.degree, self.mix, seed)
+        if "send" in self.mix:
+            self.wire = catalog.wire(self.mix["send"])
+            self.sink = Sink(self.wire.limb_chunks(self.traffic.batch))
+            self.encrypt = self._encrypt_sending
         self.dev = torch.device(dev)
         self.api = api
         self.ctx = api.se_setup_custom(
@@ -141,15 +203,41 @@ class Cell:
 
     def inputs(self) -> tuple:
         """The next call's number and inputs: (k, values, shareable seeds
-        or None, private seeds)."""
+        or None, private seeds); a sending cell's Sink reset."""
         k = self.calls
         self.calls += 1
+        if self.sink is not None:
+            self.sink.reset()
         return (k, self.traffic.values(k), *self.traffic.seeds(k))
 
     def encrypt(self, values, share, err):
         """The timed entry: its limb dicts."""
         return self._encrypt(self.ctx, values, share_seeds=share,
                              err_seeds=err, order=ORDER)
+
+    def _encrypt_sending(self, values, share, err):
+        """The timed entry of a cell whose traffic sends: its limb dicts,
+        and every chunk handed to the Sink."""
+        return self._encrypt(self.ctx, values, share_seeds=share,
+                             err_seeds=err, order=ORDER,
+                             send=self.sink.send, **self.wire.KWARGS)
+
+    def delivered(self, out) -> tuple:
+        """What a call delivered: (walk errors, message(row) -> (message
+        row's (c0, c1) uint32 (L, n), its limbs astray)).  From the bytes
+        sent where the traffic sends, the form's reader counting their
+        faults; else from the limbs returned."""
+        moduli, B, n = self.params.moduli, self.traffic.batch, \
+            self.params.degree
+        if self.wire is None:
+            return walk_errors(out, moduli, B, n), \
+                lambda row: (_rows(out, row), 0)
+        messages, bad = self.wire.read(self.sink.chunks, self.params, B)
+
+        def message(row):
+            got = messages[row]
+            return got, astray(out, got, row)
+        return walk_errors(out, moduli, B, n, arrays=False) + bad, message
 
     def call(self):
         """The next call of the cell's traffic: its limb dicts."""
@@ -163,14 +251,13 @@ class Cell:
 
     def window(self, seconds: float, sample: Sample) -> Window:
         """Calls in a closed loop until `seconds` have passed."""
-        moduli, B, n = self.params.moduli, self.traffic.batch, \
-            self.params.degree
+        B = self.traffic.batch
         calls, kept, errors = [], [], []
         failed = walk = unprepared = 0
         first = self.calls
         start = time.perf_counter()
         while True:
-            out = None      # the last call's outputs go before the clock
+            out = message = None    # the last call's outputs go first
             unprepared += self.calls >= self.traffic.prepared
             k, values, share, err = self.inputs()
             t0 = time.perf_counter()
@@ -184,18 +271,24 @@ class Cell:
                 failed += B
                 calls.append(Call(t0, t1, 0.0, 0))
             else:
-                bad = walk_errors(out, moduli, B, n)
-                walk += bad
-                calls.append(Call(t0, t1, sum(x["wait_ms"] for x in out),
-                                  0 if bad else B))
+                bad, message = self.delivered(out)
                 pick = sample.offer(k - first)
-                if pick is not None:
-                    row, slot = pick
-                    kept[slot:slot + 1] = [(k, row, _rows(out, row))]
+                keep = [] if pick is None else [pick]
+                if t1 - start >= seconds:   # the last call's two ends
+                    keep += [(row, None) for row in (0, B - 1)]
+                for row, slot in keep:
+                    got, stray = message(row)
+                    bad += stray
+                    if slot is None:
+                        kept.append((k, row, got))
+                    else:
+                        kept[slot:slot + 1] = [(k, row, got)]
+                walk += bad
+                calls.append(Call(
+                    t0, t1, sum(x["wait_ms"] for x in out), 0 if bad else B,
+                    self.sink.send_ms() if self.sink else 0.0))
             if t1 - start >= seconds:
                 break
-        if out is not None:
-            kept += [(k, row, _rows(out, row)) for row in (0, B - 1)]
         return Window(calls, t1 - start, kept, failed, walk, errors,
                       unprepared)
 

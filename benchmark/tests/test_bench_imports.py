@@ -19,6 +19,8 @@ from benchmark.catalog import Catalog
 c = Catalog()
 for name in c.metric_files():
     c.reader(name)
+for form in c.wire_files():
+    c.wire(form)
 import seal_embedded_tpu_torch.api, seal_embedded_tpu_torch.ckks.stream
 import seal_embedded_tpu_torch.graphs
 print(" ".join(sorted({{m.split(".")[0] for m in sys.modules}})))

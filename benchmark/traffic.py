@@ -3,9 +3,12 @@ every input of a run.
 
 A traffic file holds what the traffic varies, and nothing else:
 ``encrypt_type`` (sym or asym), ``batch`` (messages a call) and
-``values`` (``low`` and ``high`` of the uniform values).  Every cell is
-one caller in a closed loop; a file with any other key is refused, so a
-mix this generator cannot make is never run as one it can.
+``values`` (``low`` and ``high`` of the uniform values), and optionally
+``send``, the wire form (``wire/<send>.py``, found by the catalog) in
+which the call hands each ciphertext to the API's send callback; without
+it the call returns its limbs as arrays.  The form changes no input.
+Every cell is one caller in a closed loop; a file with any other key is
+refused, so a mix this generator cannot make is never run as one it can.
 
 From the seed, each drawn from a stream of its own:
 
@@ -29,6 +32,7 @@ CHUNK_CALLS = 64
 VALUE_BATCHES = 4        # distinct batches of values a run sends in turn
 CHECK_MESSAGES = 30      # calls of the window the check samples a message of
 KEYS = {"encrypt_type", "batch", "values"}
+OPTIONAL = {"send"}
 _SK, _PK, _VALUES, _SEEDS, _SAMPLE = range(5)
 
 
@@ -40,9 +44,13 @@ def _rng(seed: int, stream: int) -> np.random.Generator:
 def validate(mix: dict) -> dict:
     """The traffic file's parameters, or ValueError where it holds a key
     or a value the generator does not make."""
-    if set(mix) != KEYS or set(mix["values"]) != {"low", "high"}:
+    if not KEYS <= set(mix) <= KEYS | OPTIONAL \
+            or set(mix["values"]) != {"low", "high"}:
         raise ValueError(f"a traffic file holds exactly {sorted(KEYS)}, "
-                         f"values with low and high; got {sorted(mix)}")
+                         f"values with low and high, and may hold "
+                         f"{sorted(OPTIONAL)}; got {sorted(mix)}")
+    if not isinstance(mix.get("send", ""), str):
+        raise ValueError(f"send names a wire form; got {mix['send']!r}")
     if mix["encrypt_type"] not in ("sym", "asym"):
         raise ValueError(f"unknown encrypt type {mix['encrypt_type']!r}")
     if int(mix["batch"]) < 1 or not mix["values"]["low"] < \
