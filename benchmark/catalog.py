@@ -5,8 +5,9 @@ BENCHMARK.json gives, and a traffic mix, ``traffic/<name>.json`` beside
 this file.  A per-layer metric lists the cells that report it under
 ``workloads`` and is read by ``metrics/<name>.py``, a module with
 ``read(obs) -> float | None``.  A traffic mix's ``send`` names a wire
-form, ``wire/<form>.py`` (what a form module gives: wire/components.py).
-Nothing here imports torch.
+form, ``wire/<form>.py``: a module with ``KWARGS``, ``limb_chunks`` and
+``read``, and optionally ``RETURNS``, ``KINDS`` and ``complete`` (what
+each means: wire/components.py).  Nothing here imports torch.
 """
 
 from __future__ import annotations

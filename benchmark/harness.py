@@ -17,10 +17,13 @@
    host memory, with its inputs already made and the last call's
    outputs released.  Where the traffic names a wire form (``send``),
    the call also hands every chunk of its ciphertexts to a Sink, and
-   the kept messages are read from the bytes sent (wire/<form>.py).
+   the kept messages are read from the bytes sent (wire/<form>.py),
+   which may hold less than the call returns (the form's RETURNS).
 5. With --trace 1, traced segments after the window (trace.py), their
    calls' seeds made before them.
-6. The program's state freed, the check (check.py).
+6. The program's state freed; the kept messages completed by the form
+   (its ``complete``, if it has one: c1 drawn again from a seed sent in
+   its place), then the check (check.py), both in ``check_s``.
 7. The result line.
 
 Set-up (setup_s) runs from the harness's first line to the window's
@@ -49,6 +52,8 @@ from .traffic import Sample, Traffic
 FORBIDDEN = ("jax", "jaxlib", "flax", "seal_embedded_tpu")
 MIB = 2 ** 20
 ORDER = "forward"          # the chain's walk order, as the reference sends
+RETURNS = ("c0", "c1")     # a wire form's defaults: the halves a call returns
+KINDS = ("sym", "asym")    # and the encrypt types it carries
 WARMUP_CALLS = 8
 SEED_MARGIN = 1.5          # calls prepared over those the window should hold
 TRACE_SECONDS = 2.0        # the device-only traced segment
@@ -117,6 +122,19 @@ def walk_errors(out, moduli, batch: int, n: int, arrays=True) -> int:
     return bad
 
 
+def lacking(out, halves, batch: int, n: int) -> int:
+    """Limbs of a sending call that lack one of `halves`, the arrays the
+    form says the call returns (its RETURNS), as (batch, n) uint32."""
+    return sum(not all(_returned(limb, h, batch, n) for h in halves)
+               for limb in out)
+
+
+def _returned(limb, half: str, batch: int, n: int) -> bool:
+    a = limb.get(half)
+    return (isinstance(a, np.ndarray) and a.shape == (batch, n)
+            and a.dtype == np.uint32)
+
+
 class Sink:
     """The send callback of a cell whose traffic names a wire form.
 
@@ -157,20 +175,26 @@ class Sink:
         return sum(b - a for a, b in zip(s[::2], s[1::2])) * 1e-6
 
 
-def astray(out, got, row: int) -> int:
-    """Limbs whose bytes sent for message `row`, `got` (c0, c1) (L, n),
-    differ from the limb the call returned: chunks sent out of place."""
-    if got[0].shape != (len(out), got[0].shape[-1]):
+def astray(out, got, row: int, halves, batch: int) -> int:
+    """Limbs whose bytes sent for message `row` differ from the limb the
+    call returned in one of `halves`: `got`'s leading arrays, (L, n) each,
+    in the order of `halves`.  A limb lacking a half as a (batch, n)
+    uint32 array counts too (`lacking` counted it already): chunks sent
+    out of place."""
+    n = got[0].shape[-1]
+    if got[0].shape != (len(out), n):
         return len(out)
-    return sum(not (np.array_equal(got[0][j], limb["c0"][row])
-                    and np.array_equal(got[1][j], limb["c1"][row]))
+    return sum(not all(_returned(limb, h, batch, n)
+                       and np.array_equal(got[i][j], limb[h][row])
+                       for i, h in enumerate(halves))
                for j, limb in enumerate(out))
 
 
 class Cell:
     """A cell's inputs, its context on `dev` and its encrypt call."""
 
-    wire = sink = None      # the traffic's wire form and Sink, if it sends
+    wire = sink = complete = None   # the traffic's wire form, its Sink
+    returns = RETURNS               # and complete, and what a call returns
 
     def __init__(self, catalog: Catalog, name: str, seed: int, dev):
         t0 = time.perf_counter()
@@ -185,6 +209,14 @@ class Cell:
         self.traffic = Traffic(self.params.degree, self.mix, seed)
         if "send" in self.mix:
             self.wire = catalog.wire(self.mix["send"])
+            kinds = getattr(self.wire, "KINDS", KINDS)
+            if self.mix["encrypt_type"] not in kinds:
+                raise ValueError(
+                    f"wire form {self.mix['send']!r} carries {kinds}, not "
+                    f"the traffic's encrypt_type "
+                    f"{self.mix['encrypt_type']!r}")
+            self.returns = getattr(self.wire, "RETURNS", RETURNS)
+            self.complete = getattr(self.wire, "complete", None)
             self.sink = Sink(self.wire.limb_chunks(self.traffic.batch))
             self.encrypt = self._encrypt_sending
         self.dev = torch.device(dev)
@@ -226,7 +258,8 @@ class Cell:
         """What a call delivered: (walk errors, message(row) -> (message
         row's (c0, c1) uint32 (L, n), its limbs astray)).  From the bytes
         sent where the traffic sends, the form's reader counting their
-        faults; else from the limbs returned."""
+        faults, a message as the form reads it (what `complete` takes);
+        else from the limbs returned."""
         moduli, B, n = self.params.moduli, self.traffic.batch, \
             self.params.degree
         if self.wire is None:
@@ -236,8 +269,9 @@ class Cell:
 
         def message(row):
             got = messages[row]
-            return got, astray(out, got, row)
-        return walk_errors(out, moduli, B, n, arrays=False) + bad, message
+            return got, astray(out, got, row, self.returns, B)
+        return (walk_errors(out, moduli, B, n, arrays=False)
+                + lacking(out, self.returns, B, n) + bad), message
 
     def call(self):
         """The next call of the cell's traffic: its limb dicts."""
@@ -380,10 +414,13 @@ def run(catalog: Catalog, name: str, seed: int, seconds: float,
     if win.errors:
         print(win.errors[0], file=sys.stderr)
     t_check = time.perf_counter()
+    kept = [g for *_, g in win.kept]
+    if cell.complete is not None:
+        kept = [cell.complete(g, cell.params) for g in kept]
     messages = [cell.traffic.message(k, row) for k, row, _ in win.kept]
     nums = check.numbers(cell.params, mix["encrypt_type"], cell.traffic.sk,
-                         cell.traffic.pk_seed, [g for *_, g in win.kept],
-                         messages, win.failed, win.walk_errors, program_pk)
+                         cell.traffic.pk_seed, kept, messages, win.failed,
+                         win.walk_errors, program_pk)
     result["correct"] = check.correct(nums) and bool(win.kept)
     result["metrics"] = (_per_layer(catalog, name, obs) if traced
                          else _end_to_end(catalog, name, obs, setup_s, peak))

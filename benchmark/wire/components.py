@@ -10,9 +10,24 @@ A form module gives the harness three things:
 * ``KWARGS``: what the form asks of ``se_encrypt_streaming`` besides
   ``send``;
 * ``limb_chunks(batch)``: the callback's chunks that make one limb;
-* ``read(chunks, params, batch)``: each message's (c0, c1) as uint32
-  (L, n), and the count of chunks that are missing, extra, out of order
-  or of the wrong length.
+* ``read(chunks, params, batch)``: each message as the form carries it
+  (here its (c0, c1) as uint32 (L, n)), and the count of chunks that are
+  missing, extra, out of order or of the wrong length.  The window calls
+  it after every call, so it reads a message only when asked for it.
+
+and may give three more (wire/seed.py gives all three):
+
+* ``RETURNS``: the halves each limb dict the call returns carries, as
+  (B, n) uint32 arrays; default ("c0", "c1").  A read message's leading
+  arrays are these halves in this order, and only they are compared with
+  the limbs returned; a limb lacking one is a walk error of its call;
+* ``KINDS``: the encrypt types the form can carry; default ("sym",
+  "asym").  A traffic of another type is refused before set-up;
+* ``complete(got, params)``: one kept message as read turned into its
+  (c0, c1) uint32 (L, n), such as c1 drawn again from a seed sent in its
+  place.  The harness calls it after the window, once the program's
+  state is freed, never in a timed or traced segment; its time counts in
+  ``check_s``.  Without it a read message is its (c0, c1).
 """
 
 from __future__ import annotations
